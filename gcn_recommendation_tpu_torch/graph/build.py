@@ -1,0 +1,296 @@
+"""Heterogeneous graph construction and symmetric normalization (host ETL).
+
+A numpy copy of ``gcn_recommendation_tpu/graph/build.py`` (the port
+imports nothing from the JAX package).  Semantics of the reference
+(main.py:282-336):
+
+* node id layout ``[users | items | brands]``;
+* user-item edges both directions; item-brand edges both directions only
+  when ``use_brand`` (brand nodes are allocated either way);
+* duplicate (row, col) pairs are summed, like scipy's ``coo_matrix``;
+* normalization ``D^-1/2 A D^-1/2`` with isolated nodes scaled by 0.
+
+Two views of the normalized adjacency: a dst-sorted COO (the reference
+path) and a degree-bucketed ELL view plus dense hub rows (the
+propagation path, ops/spmm.py).  Only the numpy path is carried over;
+the JAX package's optional native C++ ETL computes the same arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["Graph", "build_normalized_adjacency", "normalize_sym", "bucket_by_degree"]
+
+
+def default_width_schedule(deg: int) -> int:
+    """ELL bucket width for a node of degree ``deg``: 1/2/4 for degrees
+    <= 4, then multiples of 8 up to 64, of 32 up to 256, of 128 up to
+    1024, powers of two beyond (bounds padding waste at ~10% with few
+    buckets)."""
+    if deg <= 2:
+        return max(1, deg)
+    if deg <= 4:
+        return 4
+    if deg <= 64:
+        return -(-deg // 8) * 8
+    if deg <= 256:
+        return -(-deg // 32) * 32
+    if deg <= 1024:
+        return -(-deg // 128) * 128
+    w = 2048
+    while w < deg:
+        w *= 2
+    return w
+
+
+def width_schedule_vec(deg: np.ndarray) -> np.ndarray:
+    """Vectorized ``default_width_schedule`` over a degree array."""
+    width_class = np.zeros(deg.shape[0], dtype=np.int64)
+    m = deg > 0
+    width_class[m] = ((deg[m] + 7) // 8) * 8
+    width_class[deg == 1] = 1
+    width_class[deg == 2] = 2
+    width_class[(deg == 3) | (deg == 4)] = 4
+    m = deg > 64
+    width_class[m] = ((deg[m] + 31) // 32) * 32
+    m = deg > 256
+    width_class[m] = ((deg[m] + 127) // 128) * 128
+    m = deg > 1024
+    if m.any():
+        width_class[m] = np.power(
+            2, np.ceil(np.log2(deg[m].astype(np.float64)))
+        ).astype(np.int64).clip(2048, None)
+    return width_class
+
+
+@dataclasses.dataclass
+class EllBucket:
+    """One degree bucket of the ELL view: ``nbr_idx[i, j]`` is the j-th
+    neighbor of the i-th node (0-padded), ``nbr_w`` its normalized edge
+    weight (0 on padding)."""
+
+    node_ids: np.ndarray  # [nb] int32 — global node ids, ascending
+    nbr_idx: np.ndarray   # [nb, width] int32
+    nbr_w: np.ndarray     # [nb, width] float32
+    width: int
+
+
+@dataclasses.dataclass
+class Graph:
+    """Normalized symmetric adjacency over users+items+brands."""
+
+    num_users: int
+    num_items: int
+    num_brands: int
+    nnz: int  # true (deduplicated) edge-entry count
+
+    # Sorted-COO view (dst-major, then src), padded to pad_multiple.
+    src: np.ndarray      # [nnz_pad] int32
+    dst: np.ndarray      # [nnz_pad] int32
+    weight: np.ndarray   # [nnz_pad] float32 (0 on padding)
+    row_ptr: np.ndarray  # [num_nodes + 1] int64 CSR offsets by dst row
+
+    # Degree-bucketed ELL view + dense hub rows.
+    buckets: List[EllBucket]
+    gather_idx: np.ndarray      # [num_nodes] int32 — row of each node in
+                                # concat(bucket rows, hub rows, zeros row)
+    dense_node_ids: np.ndarray  # [H] int32 hub nodes
+    dense_mat: np.ndarray       # [H, num_nodes] f32 normalized hub rows
+
+    @property
+    def num_nodes(self) -> int:
+        return self.num_users + self.num_items + self.num_brands
+
+    @property
+    def nnz_padded(self) -> int:
+        return int(self.src.shape[0])
+
+
+def normalize_sym(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, num_nodes: int
+) -> np.ndarray:
+    """Per-entry weights of ``D^-1/2 A D^-1/2`` for deduplicated entries
+    (main.py:326-331: isolated nodes' ``inf`` scale becomes 0)."""
+    deg = np.zeros(num_nodes, dtype=np.float64)
+    np.add.at(deg, rows, vals)
+    with np.errstate(divide="ignore"):
+        d_inv_sqrt = np.power(deg, -0.5)
+    d_inv_sqrt[np.isinf(d_inv_sqrt)] = 0.0
+    return (vals * d_inv_sqrt[rows] * d_inv_sqrt[cols]).astype(np.float32)
+
+
+def _dedup_sum(
+    rows: np.ndarray, cols: np.ndarray, num_nodes: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sum duplicate (row, col) entries; returns (rows, cols, vals)
+    sorted by (row, col)."""
+    key = rows.astype(np.int64) * num_nodes + cols.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key_sorted = key[order]
+    uniq_mask = np.empty(len(key_sorted), dtype=bool)
+    if len(key_sorted):
+        uniq_mask[0] = True
+        np.not_equal(key_sorted[1:], key_sorted[:-1], out=uniq_mask[1:])
+    uniq_pos = np.flatnonzero(uniq_mask)
+    seg_id = np.cumsum(uniq_mask) - 1
+    vals = np.bincount(seg_id, minlength=len(uniq_pos)).astype(np.float32)
+    uniq_key = key_sorted[uniq_pos]
+    out_rows = (uniq_key // num_nodes).astype(np.int64)
+    out_cols = (uniq_key % num_nodes).astype(np.int64)
+    return out_rows, out_cols, vals
+
+
+def bucket_by_degree(
+    dst_sorted: np.ndarray,
+    src_sorted: np.ndarray,
+    w_sorted: np.ndarray,
+    num_nodes: int,
+    dense_threshold: Optional[int] = None,
+    max_dense_bytes: int = 512 * 1024 * 1024,
+) -> Tuple[List[EllBucket], np.ndarray, np.ndarray, np.ndarray]:
+    """Degree-bucketed ELL view (+ dense hub rows) from dst-sorted edges.
+
+    Nodes of degree > ``dense_threshold`` (default 128) become rows of a
+    dense ``[H, num_nodes]`` f32 matrix, aggregated by one matrix product;
+    the threshold is raised until that matrix fits ``max_dense_bytes``.
+    Returns (buckets, gather_idx, dense_node_ids, dense_mat).
+    """
+    deg = np.bincount(dst_sorted, minlength=num_nodes).astype(np.int64)
+    row_start = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(deg, out=row_start[1:])
+
+    if dense_threshold is None:
+        dense_threshold = 128
+    while True:
+        hub_mask = deg > dense_threshold
+        if (
+            hub_mask.sum() * num_nodes * 4 <= max_dense_bytes
+            or dense_threshold >= max(int(deg.max()), 1)
+        ):
+            break
+        # a caller-provided threshold <= 0 would never grow by doubling
+        dense_threshold = dense_threshold * 2 if dense_threshold > 0 else 1
+    dense_node_ids = np.flatnonzero(hub_mask).astype(np.int64)
+    h = len(dense_node_ids)
+    dense_mat = np.zeros((h, num_nodes), dtype=np.float32)
+    if h:
+        lengths = deg[dense_node_ids]
+        starts = row_start[dense_node_ids]
+        flat_rows = np.repeat(np.arange(h), lengths)
+        flat_edge = np.concatenate(
+            [np.arange(s, s + l) for s, l in zip(starts, lengths)]
+        )
+        # np.add.at so duplicate (dst, src) pairs accumulate like the ELL
+        # path, which gives each duplicate its own slot
+        np.add.at(dense_mat, (flat_rows, src_sorted[flat_edge]), w_sorted[flat_edge])
+
+    width_class = width_schedule_vec(deg)
+    buckets: List[EllBucket] = []
+    gather_idx = np.full(num_nodes, -1, dtype=np.int64)
+    n_out_rows = 0
+
+    active = (deg > 0) & ~hub_mask
+    for width in np.sort(np.unique(width_class[active])):
+        node_ids = np.flatnonzero(active & (width_class == width)).astype(np.int64)
+        nb = len(node_ids)
+        w = int(width)
+        nbr_idx = np.zeros((nb, w), dtype=np.int32)
+        nbr_w = np.zeros((nb, w), dtype=np.float32)
+        lengths = deg[node_ids]
+        starts = row_start[node_ids]
+        total = int(lengths.sum())
+        flat_rows = np.repeat(np.arange(nb), lengths)
+        row_offsets = np.cumsum(lengths) - lengths
+        flat_cols = np.arange(total) - np.repeat(row_offsets, lengths)
+        flat_edge = np.repeat(starts, lengths) + flat_cols
+        nbr_idx[flat_rows, flat_cols] = src_sorted[flat_edge]
+        nbr_w[flat_rows, flat_cols] = w_sorted[flat_edge]
+        gather_idx[node_ids] = n_out_rows + np.arange(nb)
+        n_out_rows += nb
+        buckets.append(
+            EllBucket(node_ids=node_ids.astype(np.int32), nbr_idx=nbr_idx, nbr_w=nbr_w, width=w)
+        )
+
+    # hub rows follow the bucket rows; degree-0 nodes read the zeros row
+    if h:
+        gather_idx[dense_node_ids] = n_out_rows + np.arange(h)
+    gather_idx[gather_idx < 0] = n_out_rows + h
+    return buckets, gather_idx.astype(np.int32), dense_node_ids.astype(np.int32), dense_mat
+
+
+def build_normalized_adjacency(
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    num_users: int,
+    num_items: int,
+    num_brands: int,
+    item_brand_item_idx: Optional[np.ndarray] = None,
+    item_brand_brand_idx: Optional[np.ndarray] = None,
+    use_brand: bool = True,
+    pad_multiple: int = 1024,
+    dense_threshold: Optional[int] = None,
+    max_dense_bytes: int = 512 * 1024 * 1024,
+) -> Graph:
+    """Build the normalized heterogeneous adjacency (main.py:282-331)."""
+    num_nodes = num_users + num_items + num_brands
+    item_offset = num_users
+    brand_offset = num_users + num_items
+
+    u = np.asarray(user_idx, dtype=np.int64)
+    i = np.asarray(item_idx, dtype=np.int64) + item_offset
+    if use_brand:
+        if item_brand_item_idx is None or item_brand_brand_idx is None:
+            raise ValueError("use_brand=True requires item-brand edges")
+        bi = np.asarray(item_brand_item_idx, dtype=np.int64) + item_offset
+        bb = np.asarray(item_brand_brand_idx, dtype=np.int64) + brand_offset
+        rows = np.concatenate([u, i, bi, bb])
+        cols = np.concatenate([i, u, bb, bi])
+    else:
+        rows = np.concatenate([u, i])
+        cols = np.concatenate([i, u])
+
+    # dst-major sorted COO with dst := row (A is symmetric, so
+    # "out[dst] += w * emb[src]" computes A @ E)
+    dst_sorted, src_sorted, vals = _dedup_sum(rows, cols, num_nodes)
+    w_sorted = normalize_sym(dst_sorted, src_sorted, vals, num_nodes)
+    nnz = len(dst_sorted)
+
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(np.bincount(dst_sorted, minlength=num_nodes), out=row_ptr[1:])
+
+    # pad COO to a multiple (weight 0, dst pinned to the last row)
+    nnz_pad = ((nnz + pad_multiple - 1) // pad_multiple) * pad_multiple
+    pad = nnz_pad - nnz
+    src_p = np.concatenate([src_sorted, np.zeros(pad, dtype=np.int64)]).astype(np.int32)
+    dst_p = np.concatenate(
+        [dst_sorted, np.full(pad, num_nodes - 1, dtype=np.int64)]
+    ).astype(np.int32)
+    w_p = np.concatenate([w_sorted, np.zeros(pad, dtype=np.float32)])
+
+    buckets, gather_idx, dense_node_ids, dense_mat = bucket_by_degree(
+        dst_sorted,
+        src_sorted,
+        w_sorted,
+        num_nodes,
+        dense_threshold=dense_threshold,
+        max_dense_bytes=max_dense_bytes,
+    )
+
+    return Graph(
+        num_users=num_users,
+        num_items=num_items,
+        num_brands=num_brands,
+        nnz=nnz,
+        src=src_p,
+        dst=dst_p,
+        weight=w_p,
+        row_ptr=row_ptr,
+        buckets=buckets,
+        gather_idx=gather_idx,
+        dense_node_ids=dense_node_ids,
+        dense_mat=dense_mat,
+    )

@@ -1,0 +1,100 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on a CUDA card unless the CPU is asked for."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "gcn_recommendation_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for root, _, files in os.walk(os.path.join(REPO, PKG)):
+        for f in sorted(files):
+            if f.endswith(".py") and f != "__main__.py":
+                rel = os.path.relpath(os.path.join(root, f), REPO)[: -len(".py")]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def test_port_lists_its_modules():
+    mods = _port_modules()
+    for m in ("ops.quant", "ops.spmm", "ops.topk", "serve", "cli", "kernels._build",
+              "models.lightgcn", "models.convert", "utils.checkpoint", "core.device"):
+        assert f"{PKG}.{m}" in mods
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'gcn_recommendation_tpu'\n"
+        "             or k.startswith('gcn_recommendation_tpu.'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+
+
+def test_default_device_raises_without_cuda():
+    _no_card()
+    from gcn_recommendation_tpu_torch.core.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    _no_card()
+    from gcn_recommendation_tpu_torch.config import Config
+    from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
+    from gcn_recommendation_tpu_torch.models import get_model
+    from gcn_recommendation_tpu_torch.models.convert import params_from_jax
+    from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
+    from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
+
+    b = synthetic_bundle(40, 30, 4, seed=0)
+    calls = [
+        lambda: get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, Config()),
+        lambda: to_device_graph_auto(b.graph),
+        lambda: params_from_jax({k: np.zeros((2, 2)) for k in
+                                 ("user_embedding", "item_embedding", "brand_embedding")}),
+        lambda: load_params(str(tmp_path)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_cli_without_device_raises_without_cuda(tmp_path):
+    _no_card()
+    from gcn_recommendation_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["recommend", "--processed_dir", str(tmp_path), "--users", "0"])
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_card()
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
