@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port's serving path.
+"""Chip smoke test of the PyTorch/CUDA port: the serving and training paths.
 
     python3 chip_smoke.py
 
@@ -8,12 +8,13 @@ Needs one CUDA card (an H100; the kernels are built for sm_90a) and
 fails:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build every CUDA kernel of the path from ``gcn_recommendation_tpu_torch/csrc``;
+2. build every CUDA kernel from ``gcn_recommendation_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
 3. kernel check: ``quantize_rows_int8`` on the card against its plain
    PyTorch version at the catalog shape [20000, 64] and a ragged
    [1000, 48]; q and scales must be bit-equal.  Kernel and plain times
    are CUDA-event medians over 5 windows of 20 back-to-back calls;
-4. the path: the books-shaped bench bundle (72,000 nodes, ~3.03M
+4. the serving path: the books-shaped bench bundle (72,000 nodes, ~3.03M
    adjacency nonzeros), LightGCN dim 64, 3 layers, random weights from a
    seed; ``Retriever.from_params`` with the f32 and the int8 catalog,
    then requests of 1, 7, 64 and 1024 users at k=20 through
@@ -21,7 +22,21 @@ fails:
    Checked: finite scores, no seen item returned, pipelined and
    micro-batched equal per-request results, the ELL propagation equal to
    the ``propagate_coo`` oracle within 1e-5, int8 top-20 overlapping f32
-   top-20 by >= 0.9, and the kernel launched during the int8 load.
+   top-20 by >= 0.9, and the kernel launched during the int8 load;
+5. kernel check: ``tile_matvec`` (``csrc/tile_spmm.cu``) against its plain
+   version on the same bundle's tile partition (min_fill 64, 8 tiles per
+   step, d = 64) with f32 tiles (max abs diff <= 1e-5) and bf16 tiles
+   (<= 1e-3 * max|plain|), and on a ragged partition (N not a multiple of
+   128, d = 48); the ``propagate_ell_tiles`` gradient of ``sum(out**2)``
+   against the plain ELL path's within 1e-4; times beside the bound and
+   beside ``torch.sparse.mm`` of the tile edges as a CSR matrix;
+6. the training path: a ``Trainer`` with ``tile_spmm=True`` and an ELL
+   twin from the same params (dim 64, 3 layers, batch 2048) take the same
+   20 steps on the same batches and negatives.  Checked: finite losses,
+   the two paths' per-step losses within rtol 2e-3, the loss falling,
+   ``tile_matvec`` launched exactly 6 times a step plus 3 for the
+   validation forward, Recall@20 / NDCG@20 in [0, 1], and the ``best``
+   checkpoint serving a 64-user request through ``Retriever``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -34,19 +49,27 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gcn_recommendation_tpu_torch.config import Config
-from gcn_recommendation_tpu_torch.data.sampler import membership_arrays
+from gcn_recommendation_tpu_torch.data.sampler import (
+    epoch_batches,
+    membership_arrays,
+    sample_negatives,
+)
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
+from gcn_recommendation_tpu_torch.graph.tiles import TILE, partition_tiles
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops import quant
-from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant
+from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
 from gcn_recommendation_tpu_torch.serve import Retriever
+from gcn_recommendation_tpu_torch.train.trainer import Trainer
+from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -55,6 +78,11 @@ REQUEST_SIZES = (1, 7, 64, 1024)
 K = 20
 PROPAGATION_ATOL = 1e-5       # f32 ELL vs f32 COO: same sums, other order
 MIN_INT8_OVERLAP = 0.9
+TILE_F32_ATOL = 1e-5          # f32 kernel vs plain: same products, other sum order
+TILE_BF16_RTOL = 1e-3         # bf16 tiles: exact products, f32 sums; x max|plain|
+TILE_GRAD_ATOL = 1e-4         # tile vs ELL gradient of sum(out**2)
+TRAIN_STEPS = 20
+TRAIN_LOSS_RTOL = 2e-3        # tile vs ELL per-step loss (tests/test_tile_spmm.py)
 
 
 def _cuda_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
@@ -160,17 +188,22 @@ def _same_topk(a, b, tol: float) -> bool:
     return True
 
 
-def phase_path(dev):
-    """Drive the serving path and check it; returns the launch counts
-    of the main path."""
+def books_bundle():
+    """bench.py's books-shaped bundle, and the host seconds it took."""
     t0 = time.perf_counter()
-    # bench.py's books-shaped bundle
     bundle = synthetic_bundle(50_000, 20_000, 2_000, mean_degree=28.0, core=8, seed=42)
     g = bundle.graph
     bundle_s = time.perf_counter() - t0
     print(f"bundle: {g.num_nodes} nodes, {g.nnz} nonzeros, "
           f"{len(g.buckets)} ELL buckets, hub matrix {tuple(g.dense_mat.shape)}, "
           f"built in {bundle_s:.1f} s on the host", flush=True)
+    return bundle, bundle_s
+
+
+def phase_path(dev, bundle, bundle_s):
+    """Drive the serving path and check it; returns the launch counts
+    of the main path."""
+    g = bundle.graph
     cfg = Config(embedding_dim=64, n_layers=3)
     model = get_model("LightGCN")(
         bundle.num_users, bundle.num_items, bundle.num_brands, cfg, device=dev
@@ -255,6 +288,278 @@ def phase_path(dev):
     return launches
 
 
+def _tile_bound_ms(tiles, n: int, d: int):
+    """Least time for one ``tile_matvec`` on the card: each input read
+    once (tile values, column ids, step pointers, the [n, d] embedding),
+    the output written once, against the operations this data needs (two
+    per nonzero tile value and column).  Also returns the time of the
+    dense tile products alone (the work the TPU kernel's formulation does)."""
+    a = tiles.tile_a
+    nbytes = (a.numel() * a.element_size() + 4 * tiles.num_tiles
+              + 4 * (tiles.n_row_blocks + 1) + 4 * n * d
+              + 4 * tiles.n_row_blocks * TILE * d)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * int((a != 0).sum()) * d / FP32_OPS_PER_S * 1e3
+    dense_ms = 2 * tiles.num_tiles * TILE * TILE * d / FP32_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return bound, "bytes" if bytes_ms >= ops_ms else "operations", dense_ms
+
+
+def _tile_csr(part, n: int, dev):
+    """The tile edges as one CSR matrix [R*128, n] (the library yardstick)."""
+    t, i, j = np.nonzero(part.tile_a)
+    rows = part.step_row[t // part.tiles_per_step].astype(np.int64) * TILE + i
+    cols = part.tile_col[t].astype(np.int64) * TILE + j
+    coo = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(part.tile_a[t, i, j]),
+        (part.n_row_blocks * TILE, n),
+    )
+    return coo.coalesce().to(dev).to_sparse_csr()
+
+
+def _check_tile_kernel(part, n: int, d: int, dev, what: str):
+    """Kernel vs plain on one partition, f32 and bf16 tiles; returns the
+    f32 (tiles, emb, max abs diff) and the bf16 tiles."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    emb = torch.randn((n, d), generator=gen, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tiles = block_spmm.to_device_tiles(part, tile_dtype=dtype, device=dev)
+        k = block_spmm.tile_matvec(emb, tiles)
+        p = block_spmm._tile_matvec_reference(emb, tiles)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        if dtype == torch.float32:
+            check(err <= TILE_F32_ATOL,
+                  f"tile_matvec f32 kernel matches plain on {what} (max abs diff {err:.3g})")
+        else:
+            check(err <= TILE_BF16_RTOL * scale,
+                  f"tile_matvec bf16 kernel matches plain on {what} "
+                  f"(max abs diff {err:.3g}, max|plain| {scale:.3g})")
+        out[dtype] = (tiles, emb, err)
+    return out
+
+
+def phase_tile_kernel_check(dev, bundle):
+    """The tile kernel against its plain version, its gradient against
+    the ELL path, and its times beside the bound and the library call."""
+    g = bundle.graph
+    n, d = g.num_nodes, 64
+    t0 = time.perf_counter()
+    part = partition_tiles(g, min_fill=64, tiles_per_step=8)
+    partition_s = time.perf_counter() - t0
+    check(part is not None, "the books bundle has qualifying tiles at min_fill 64")
+    real = part.tile_a.reshape(part.num_tiles, -1).any(axis=1)
+    per_rb = np.bincount(part.step_row[np.arange(part.num_tiles) // part.tiles_per_step][real],
+                         minlength=part.n_row_blocks)
+    fill = float((part.tile_a != 0).sum()) / part.tile_a.size
+    stats = {
+        "partition_s": partition_s, "tiles": part.num_tiles, "real_tiles": int(real.sum()),
+        "steps": len(part.step_row), "row_blocks": part.n_row_blocks,
+        "covered_edges": part.covered_edges, "nnz": g.nnz,
+        "tile_bytes_f32": part.tile_a.nbytes, "tile_fill": fill,
+        "tiles_per_row_block_max": int(per_rb.max()),
+        "tiles_per_row_block_mean": float(per_rb.mean()),
+        "residual_buckets": len(part.residual.buckets),
+    }
+    print("partition: " + json.dumps(stats), flush=True)
+
+    t0 = time.perf_counter()
+    block_spmm.to_device_tiles(part, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    to_device_graph(part.residual, device=dev)
+    torch.cuda.synchronize()
+    print(f"upload: tiles {t1 - t0:.3f} s, residual graph {time.perf_counter() - t1:.3f} s",
+          flush=True)
+
+    checked = _check_tile_kernel(part, n, d, dev, f"the books partition (d={d})")
+    tiles, emb, err = checked[torch.float32]
+    tiles_bf16 = checked[torch.bfloat16][0]
+
+    small = synthetic_bundle(1000, 700, 30, mean_degree=20.0, core=4, seed=1).graph
+    small_part = partition_tiles(small, min_fill=16, tiles_per_step=8)
+    check(small.num_nodes % TILE != 0 and small_part is not None,
+          f"ragged partition: {small.num_nodes} nodes")
+    _check_tile_kernel(small_part, small.num_nodes, 48, dev,
+                       f"a ragged partition ({small.num_nodes} nodes, d=48)")
+
+    # gradient of sum(out**2): tile partition vs the plain ELL path
+    res = to_device_graph(part.residual, device=dev)
+    full = to_device_graph(g, device=dev)
+    x = emb.clone().requires_grad_(True)
+    (g_tile,) = torch.autograd.grad(
+        (block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
+    (g_ell,) = torch.autograd.grad((propagate_ell(
+        x, full.bucket_nbr_idx, full.bucket_nbr_w, full.gather_idx, full.dense_mat) ** 2).sum(),
+        x)
+    gerr = (g_tile - g_ell).abs().max().item()
+    check(gerr <= TILE_GRAD_ATOL,
+          f"propagate_ell_tiles gradient matches the ELL gradient (max abs diff {gerr:.3g})")
+
+    csr = _tile_csr(part, n, dev)
+    lib = torch.sparse.mm(csr, emb)
+    ker = block_spmm.tile_matvec(emb, tiles)
+    torch.cuda.synchronize()
+    lerr = (lib - ker).abs().max().item()
+    check(lerr <= TILE_F32_ATOL, f"torch.sparse.mm of the tile edges equals the kernel "
+                                 f"(max abs diff {lerr:.3g})")
+    ms = _cuda_ms(lambda: block_spmm.tile_matvec(emb, tiles))
+    bf16_ms = _cuda_ms(lambda: block_spmm.tile_matvec(emb, tiles_bf16))
+    plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, tiles))
+    library_ms = _cuda_ms(lambda: torch.sparse.mm(csr, emb))
+    bound_ms, bound_by, dense_ms = _tile_bound_ms(tiles, n, d)
+    return {
+        "name": "tile_matvec",
+        "route": "cuda",
+        "source": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "gcn_recommendation_tpu/ops/block_spmm.py:79",
+        "shape": [part.num_tiles, TILE, TILE, d],
+        "max_abs_err": err,
+        "max_abs_diff_vs_plain": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,  # torch.sparse.mm, CSR of the tile edges
+        "bf16_ms": bf16_ms,
+        "dense_products_ms": dense_ms,
+    }
+
+
+def _profile_steps(trainer, users, pos, neg, steps: int = 5):
+    """Device time by kernel over ``steps`` training steps
+    (``torch.profiler``), in ms per step, and the device's idle share of
+    the window (one stream: 1 - kernel time / wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            trainer.train_step(users[s], pos[s], neg[s])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.events():  # device-side events only, as the profiler's own total
+        if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
+            name = evt.name[:80]
+            kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / steps
+    busy = sum(kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    return {"wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy,
+            "idle_share": 1.0 - busy * steps / wall_ms if busy else None,
+            "top_kernels_ms_per_step": top}
+
+
+def phase_train(dev, bundle):
+    """Drive the training path with tiles and its ELL twin; returns the
+    tile kernel's launches on the path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trainers, build_s = {}, {}
+    params = None
+    for tile in (True, False):
+        cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048, tile_spmm=tile,
+                     tile_min_fill=64, checkpoint_dir=tmp, results_dir=tmp)
+        model = get_model("LightGCN")(
+            bundle.num_users, bundle.num_items, bundle.num_brands, cfg, device=dev)
+        if params is None:
+            params = model.init(torch.Generator().manual_seed(42))
+        else:
+            model.load_params(params)
+        t0 = time.perf_counter()
+        trainers[tile] = Trainer(cfg, model, bundle)
+        torch.cuda.synchronize()
+        build_s[tile] = time.perf_counter() - t0
+    tr = trainers[True]
+    check(isinstance(tr.graph, block_spmm.TiledDeviceGraph), "tile trainer runs the tiles")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = epoch_batches(gen, tr.n_train, 2048, dev)[:TRAIN_STEPS]
+    users, pos = tr.train_users[idx], tr.train_items[idx]
+    neg = sample_negatives(gen, users, tr.pos_keys, num_items=bundle.num_items)
+
+    # --- the main path: counts from 0, read right after ---
+    torch.cuda.reset_peak_memory_stats()
+    block_spmm.tile_matvec.launches = 0
+    losses, step_ms = {}, {}
+    for tile in (True, False):
+        t = trainers[tile]
+        out = [t.train_step(users[0], pos[0], neg[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, TRAIN_STEPS):
+            out.append(t.train_step(users[s], pos[s], neg[s]))
+        torch.cuda.synchronize()
+        step_ms[tile] = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        losses[tile] = torch.stack(out).cpu().numpy()
+    recall, ndcg = tr.validate()
+    launches = {"tile_matvec": block_spmm.tile_matvec.launches}
+    # --- end of the main path ---
+
+    for tile, name in ((True, "tile"), (False, "ELL")):
+        lo = losses[tile]
+        check(np.isfinite(lo).all(), f"{name} path: {TRAIN_STEPS} finite step losses")
+        check(lo[-5:].mean() < lo[:5].mean(),
+              f"{name} path: loss falls ({lo[:5].mean():.5f} -> {lo[-5:].mean():.5f})")
+    rel = np.abs(losses[True] - losses[False]) / np.abs(losses[False])
+    check(rel.max() <= TRAIN_LOSS_RTOL,
+          f"tile and ELL step losses agree (max rel diff {rel.max():.3g})")
+    want = 6 * TRAIN_STEPS + 3
+    check(launches["tile_matvec"] == want,
+          f"tile_matvec launched {launches['tile_matvec']}x = 6 per step x {TRAIN_STEPS} "
+          f"+ 3 for validation")
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (recall, ndcg)),
+          f"validation Recall@20 {recall:.4f}, NDCG@20 {ndcg:.4f}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    ckpt.save_state(tmp, "best", tr.model.params(), tr.optimizer.state_dict(), 1, recall,
+                    tr.generator.get_state())
+    served = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands,
+                                   Config(embedding_dim=64, n_layers=3), device=dev)
+    r = Retriever.from_params(served, ckpt.load_params(tmp, device=dev), bundle)
+    users64 = np.unique(bundle.train.user_idx)[:64]
+    v, i = r.recommend(users64, k=K)
+    check(v.shape == (64, K) and np.isfinite(v).all(),
+          "the training checkpoint serves a 64-user request through Retriever")
+
+    def fwd_bwd(t):
+        fu, fi, fb, _, _ = t.model(t.graph)
+        (fu.sum() + fi.sum() + fb.sum()).backward()
+
+    prop_ms = {tile: _cuda_ms(lambda t=trainers[tile]: fwd_bwd(t), reps=5, warmup=2)
+               for tile in (True, False)}
+    meas = {
+        "steps": TRAIN_STEPS,
+        "batch": 2048,
+        "ms_per_step_tile": step_ms[True],
+        "ms_per_step_ell": step_ms[False],
+        "examples_per_s_tile": 2048 / step_ms[True] * 1e3,
+        "examples_per_s_ell": 2048 / step_ms[False] * 1e3,
+        "trainer_build_s_tile": build_s[True],
+        "trainer_build_s_ell": build_s[False],
+        "propagation_fwd_bwd_ms_tile": prop_ms[True],
+        "propagation_fwd_bwd_ms_ell": prop_ms[False],
+        "loss_first_tile": float(losses[True][0]),
+        "loss_last_tile": float(losses[True][-1]),
+        "loss_max_rel_diff": float(rel.max()),
+        # after 20 Adam steps: how far apart the two paths' tables are
+        "params_max_abs_diff": max(
+            (trainers[True].model.params()[k] - trainers[False].model.params()[k])
+            .abs().max().item() for k in ("user_embedding", "item_embedding")),
+        "val_recall20": recall,
+        "val_ndcg20": ndcg,
+        "peak_mem_gib": peak_gib,
+    }
+    print("train: " + json.dumps(meas), flush=True)
+    for tile, name in ((True, "tile"), (False, "ell")):
+        prof = _profile_steps(trainers[tile], users, pos, neg)
+        print(f"profile_{name}: " + json.dumps(prof), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -275,11 +580,13 @@ def main() -> int:
         for line in log.strip().splitlines():
             print(f"  nvcc[{name}]: {line}")
 
-    record = phase_kernel_check(dev)
-    launches = phase_path(dev)
-    record["launches"] = launches[record["name"]]
+    quant_record = phase_kernel_check(dev)
+    bundle, bundle_s = books_bundle()
+    quant_record["launches"] = phase_path(dev, bundle, bundle_s)[quant_record["name"]]
+    tile_record = phase_tile_kernel_check(dev, bundle)
+    tile_record["launches"] = phase_train(dev, bundle)[tile_record["name"]]
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [quant_record, tile_record]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,17 +1,22 @@
-"""Command-line entry point of the port: the ``recommend`` mode.
+"""Command-line entry point of the port: ``train``, ``test`` and ``recommend``.
 
-Counterpart of ``gcn_recommendation_tpu/cli.py::run_recommend``: load a
-processed dataset and a checkpoint, propagate once, print masked top-k
-per user in the same ``user u: item:score ...`` lines.
+Counterpart of ``gcn_recommendation_tpu/cli.py``'s modes of the same
+names, with the same output lines:
 
+    python -m gcn_recommendation_tpu_torch train --processed_dir DIR \
+        [--epochs 150] [--batch_size 2048] [--resume] \
+        [--tile_spmm [--tile_min_fill 64] [--tile_dtype bfloat16]] [--device cpu]
+    python -m gcn_recommendation_tpu_torch test --processed_dir DIR [--device cpu]
     python -m gcn_recommendation_tpu_torch recommend --processed_dir DIR \
         --model_path CKPT_DIR [--users 3,7] [--k 20] [--int8] \
         [--include_seen] [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Checkpoints are the
-port's own (``utils/checkpoint.py``); params of the JAX package, as
-numpy arrays, are carried across with ``models/convert.py`` and saved
-with ``save_params``.
+port's own (``utils/checkpoint.py``): ``train`` writes ``best.pt`` and
+``last.pt`` under ``<checkpoint_dir>/<checkpoint_name>``, which ``test``
+and ``recommend`` read.  Params of the JAX package, as numpy arrays, are
+carried across with ``models/convert.py`` and saved with ``save_params``.
+Reading the parquet dataset needs pandas.
 """
 
 from __future__ import annotations
@@ -24,28 +29,59 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Serve LightGCN recommendations (PyTorch/CUDA port)."
+        description="Train, test and serve LightGCN (PyTorch/CUDA port)."
     )
     sub = p.add_subparsers(dest="mode", required=True)
+
+    def add_common(sp):
+        sp.add_argument("--model_name", type=str, default="LightGCN")
+        sp.add_argument("--core", type=int, default=16)
+        sp.add_argument("--dataset", type=str, default="steam_emb",
+                        help="Dataset recipe name (see config.DATASET_DIR_TEMPLATES).")
+        sp.add_argument("--data_root", type=str, default=".")
+        sp.add_argument("--processed_dir", type=str, default=None,
+                        help="Explicit processed-data dir (overrides --dataset).")
+        sp.add_argument("--no_brand", action="store_true")
+        sp.add_argument("--debug", action="store_true")
+        sp.add_argument("--use_pretrained_emb", action="store_true",
+                        help="Initialize item embeddings with pretrained text "
+                             "embeddings (train); selects the checkpoint name.")
+        sp.add_argument("--seed", type=int, default=42)
+        sp.add_argument("--output_root", type=str, default=None,
+                        help="Root of exp/ outputs (checkpoints + results).")
+        sp.add_argument("--compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"])
+        sp.add_argument("--device", type=str, default=None,
+                        help="'cuda' (default) or 'cpu'.")
+
+    tr = sub.add_parser("train", help="Train a model.")
+    add_common(tr)
+    tr.add_argument("--epochs", type=int, default=150)
+    tr.add_argument("--batch_size", type=int, default=None)
+    tr.add_argument("--learning_rate", type=float, default=None)
+    tr.add_argument("--val_interval", type=int, default=None,
+                    help="Validate every N epochs (default 5, main.py:66).")
+    tr.add_argument("--brand_loss", action="store_true",
+                    help="Enable the brand preference loss.")
+    tr.add_argument("--resume", action="store_true",
+                    help="Resume from the rolling 'last' checkpoint.")
+    tr.add_argument("--tile_spmm", action="store_true",
+                    help="Propagate the dense row-block mass through block-"
+                         "sparse 128x128 tiles (csrc/tile_spmm.cu on the card).")
+    tr.add_argument("--tile_min_fill", type=int, default=64,
+                    help="Edges a 128x128 tile needs to qualify.")
+    tr.add_argument("--tile_dtype", type=str, default="float32",
+                    choices=["float32", "bfloat16"])
+
+    te = sub.add_parser("test", help="Evaluate the best checkpoint on the test split.")
+    add_common(te)
+    te.add_argument("--model_path", type=str, default=None,
+                    help="Checkpoint dir (default: the train-mode location).")
+
     rc = sub.add_parser(
         "recommend", help="Serve top-k recommendations from a trained checkpoint."
     )
-    rc.add_argument("--model_name", type=str, default="LightGCN")
-    rc.add_argument("--core", type=int, default=16)
-    rc.add_argument("--dataset", type=str, default="steam_emb",
-                    help="Dataset recipe name (see config.DATASET_DIR_TEMPLATES).")
-    rc.add_argument("--data_root", type=str, default=".")
-    rc.add_argument("--processed_dir", type=str, default=None,
-                    help="Explicit processed-data dir (overrides --dataset).")
-    rc.add_argument("--no_brand", action="store_true")
-    rc.add_argument("--debug", action="store_true")
-    rc.add_argument("--use_pretrained_emb", action="store_true",
-                    help="Selects the default checkpoint name of such a run.")
-    rc.add_argument("--seed", type=int, default=42)
-    rc.add_argument("--output_root", type=str, default=None,
-                    help="Root of exp/ outputs holding the default checkpoint dir.")
-    rc.add_argument("--compute_dtype", type=str, default="float32",
-                    choices=["float32", "bfloat16"])
+    add_common(rc)
     rc.add_argument("--model_path", type=str, default=None,
                     help="Checkpoint dir (default: the train-mode location).")
     rc.add_argument("--users", type=str, default=None,
@@ -58,8 +94,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "stochastic-rounding quantizer on the card).")
     rc.add_argument("--include_seen", action="store_true",
                     help="Do not filter the user's train-seen items.")
-    rc.add_argument("--device", type=str, default=None,
-                    help="'cuda' (default) or 'cpu'.")
     return p
 
 
@@ -82,26 +116,114 @@ def _make_config(args):
         kwargs["checkpoint_dir"] = os.path.join(
             args.output_root, "exp", "checkpoints", "checkpoints"
         )
+        kwargs["results_dir"] = os.path.join(args.output_root, "exp", "results", "results")
+    if args.mode == "train":
+        kwargs.update(
+            epochs=args.epochs,
+            brand_loss=args.brand_loss,
+            tile_spmm=args.tile_spmm,
+            tile_min_fill=args.tile_min_fill,
+            tile_dtype=args.tile_dtype,
+        )
+        for name in ("batch_size", "learning_rate", "val_interval"):
+            if getattr(args, name) is not None:
+                kwargs[name] = getattr(args, name)
     return Config(**kwargs)
+
+
+def _load_everything(config, device):
+    """(bundle, model on ``device``), the model's item table initialized
+    from the pretrained matrix when the run asks for it."""
+    from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
+    from gcn_recommendation_tpu_torch.models import get_model
+
+    print(f"Using device: {device}")
+    emb = None
+    if config.use_pretrained_emb:
+        if os.path.exists(config.pretrained_emb_path):
+            print(f"Loading pretrained item embeddings from {config.pretrained_emb_path}")
+            emb = np.load(config.pretrained_emb_path)
+        else:
+            print(f"WARNING: --use_pretrained_emb was set, but file not found at "
+                  f"{config.pretrained_emb_path}. Using random initialization.")
+    bundle = load_preprocessed_data(
+        config.data_dir, use_brand=config.use_brand, debug=config.debug
+    )
+    model = get_model(config.model_name)(
+        bundle.num_users, bundle.num_items, bundle.num_brands, config,
+        pretrained_item_emb=emb, device=device,
+    )
+    return bundle, model
+
+
+def _restore_best_params(config, args, device):
+    from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
+
+    ckpt_dir = args.model_path or os.path.join(config.checkpoint_dir, config.checkpoint_name())
+    params = load_params(ckpt_dir, device=device)
+    if params is None:
+        raise FileNotFoundError(f"Model checkpoint not found at '{ckpt_dir}'")
+    print(f"Model loaded from '{ckpt_dir}'")
+    return params
+
+
+def run_train(args) -> int:
+    from gcn_recommendation_tpu_torch.core.device import resolve_device
+    from gcn_recommendation_tpu_torch.train.trainer import Trainer
+    from gcn_recommendation_tpu_torch.utils.logging import Logger
+
+    config = _make_config(args)
+    device = resolve_device(args.device)
+    bundle, model = _load_everything(config, device)
+    logger = Logger(config.results_dir, config.logger_name(), top_k=config.top_k)
+    trainer = Trainer(config, model, bundle, logger=logger)
+    print("\nStep 2: Starting model training...")
+    if config.use_brand:
+        print(f"Author Loss Config: brand_loss={config.brand_loss}, "
+              f"weight={config.brand_loss_weight}")
+    trainer.fit(resume=args.resume)
+    print("Training finished.")
+    return 0
+
+
+def run_test(args) -> int:
+    from gcn_recommendation_tpu_torch.core.device import resolve_device
+    from gcn_recommendation_tpu_torch.data.loader import Interactions
+    from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
+    from gcn_recommendation_tpu_torch.train.evaluate import evaluate
+
+    config = _make_config(args)
+    device = resolve_device(args.device)
+    bundle, model = _load_everything(config, device)
+    model.load_params(_restore_best_params(config, args, device))
+
+    print("Evaluating on the TEST set...")
+    # test-time filter = train + val (main.py:576)
+    filt = Interactions(
+        np.concatenate([bundle.train.user_idx, bundle.val.user_idx]),
+        np.concatenate([bundle.train.item_idx, bundle.val.item_idx]),
+    )
+    graph = to_device_graph_auto(
+        bundle.graph, compute_dtype=model.compute_dtype, device=device
+    )
+    recall, ndcg = evaluate(
+        model, graph, bundle.test, filt, bundle.num_users, bundle.num_items,
+        config.top_k, config.eval_user_batch,
+    )
+    print("\n--- Final Test Results ---")
+    print(f"Recall@{config.top_k}: {recall:.4f}")
+    print(f"NDCG@{config.top_k}:   {ndcg:.4f}")
+    print("--------------------------")
+    return 0
 
 
 def run_recommend(args) -> int:
     from gcn_recommendation_tpu_torch.core.device import resolve_device
-    from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
-    from gcn_recommendation_tpu_torch.models import get_model
     from gcn_recommendation_tpu_torch.serve import Retriever
-    from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
 
     config = _make_config(args)
     device = resolve_device(args.device)
-    print(f"Using device: {device}")
-    bundle = load_preprocessed_data(
-        config.data_dir, use_brand=config.use_brand, debug=config.debug
-    )
-    # the checkpoint overwrites every table, so no pretrained init is read
-    model = get_model(config.model_name)(
-        bundle.num_users, bundle.num_items, bundle.num_brands, config, device=device
-    )
+    bundle, model = _load_everything(config, device)
 
     # validate cheap inputs before the restore and the propagation
     k = config.top_k if args.k is None else args.k
@@ -119,14 +241,7 @@ def run_recommend(args) -> int:
             0, bundle.num_users, args.num_sample
         ).astype(np.int32)
 
-    ckpt_dir = args.model_path or os.path.join(
-        config.checkpoint_dir, config.checkpoint_name()
-    )
-    params = load_params(ckpt_dir, device=device)
-    if params is None:
-        raise FileNotFoundError(f"Model checkpoint not found at '{ckpt_dir}'")
-    print(f"Model loaded from '{ckpt_dir}'")
-
+    params = _restore_best_params(config, args, device)
     retriever = Retriever.from_params(model, params, bundle, quantize=args.int8)
     scores, items = retriever.recommend(
         users, k=k, filter_seen=not args.include_seen
@@ -142,9 +257,8 @@ def run_recommend(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode == "recommend":
-        return run_recommend(args)
-    raise ValueError(args.mode)
+    modes = {"train": run_train, "test": run_test, "recommend": run_recommend}
+    return modes[args.mode](args)
 
 
 if __name__ == "__main__":

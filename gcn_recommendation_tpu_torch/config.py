@@ -76,6 +76,12 @@ class Config:
     param_dtype: str = "float32"        # embedding-table storage dtype
     compute_dtype: str = "float32"      # propagation storage dtype; the
                                         # reductions and layer mean stay f32
+    tile_spmm: bool = False             # block-sparse tiles for the dense
+                                        # row-block mass of the propagation
+                                        # (graph/tiles.py, csrc/tile_spmm.cu)
+    tile_min_fill: int = 64             # edges a 128x128 tile needs
+    tile_dtype: str = "float32"         # tile-value storage ("bfloat16"
+                                        # halves the tile bytes)
 
     def __post_init__(self):
         if self.debug:
@@ -111,3 +117,10 @@ class Config:
         ablation = "" if self.use_brand else "_no_brand"
         pretrained = "_embed" if self.use_pretrained_emb else ""
         return f"best_{self.model_name.lower()}_core{self.core}{ablation}{pretrained}"
+
+    def logger_name(self) -> str:
+        """Run name used for CSV/PNG artifacts, mirroring main.py:444-446."""
+        name = f"{self.model_name}_{'brand' if self.use_brand else 'no_brand'}"
+        if self.use_pretrained_emb:
+            name += "_pretrained"
+        return name

@@ -39,6 +39,14 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "tile_spmm": {
+        "tile_spmm_launch": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+    },
 }
 
 KERNEL_SOURCES = tuple(sorted(_SIGNATURES))

@@ -1,9 +1,13 @@
-"""Weights carried across from the JAX package.
+"""Weights and optimizer state carried across from the JAX package.
 
 A JAX LightGCN params dict, turned into numpy arrays by the caller
 (``{k: np.asarray(v) for k, v in params.items()}``), becomes a dict of
 tensors that ``LightGCN.load_params`` takes.  The keys are those of the
-JAX ``LightGCN.init``; the shapes are logical (no row padding).
+JAX ``LightGCN.init``; the shapes are logical (no row padding).  The
+Adam state of ``optax.adam`` (its ``ScaleByAdamState``: ``count``, and
+``mu`` / ``nu`` dicts keyed like the params) becomes the state of a
+``torch.optim.Adam`` over the model's tables: the same moments and step
+count, so the next update is the same.
 """
 
 from __future__ import annotations
@@ -29,3 +33,21 @@ def params_from_jax(
         k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(dev)
         for k in PARAM_KEYS
     }
+
+
+def load_adam_state_from_jax(
+    optimizer: torch.optim.Adam,
+    model,
+    count,
+    mu: Dict[str, np.ndarray],
+    nu: Dict[str, np.ndarray],
+) -> None:
+    """Set ``optimizer``'s state for each of ``model``'s tables from
+    optax's Adam state given as numpy (``count`` a scalar)."""
+    for key in PARAM_KEYS:
+        p = getattr(model, key)
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(mu[key], dtype=np.float32)).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[key], dtype=np.float32)).to(p.device),
+        }

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
-from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, propagate
+from gcn_recommendation_tpu_torch.ops.spmm import propagate
 
 PARAM_KEYS = ("user_embedding", "item_embedding", "brand_embedding")
 
@@ -107,8 +107,11 @@ class LightGCN(nn.Module):
                 )
             table.copy_(src)
 
-    def forward(self, graph: DeviceGraph, path: str = "ell"):
-        """Returns (final_user, final_item, final_brand, user0, item0)."""
+    def forward(self, graph, path: str = "ell"):
+        """Returns (final_user, final_item, final_brand, user0, item0).
+        ``graph`` is a DeviceGraph or a TiledDeviceGraph; gradients flow
+        to the tables through either (each propagation's backward is the
+        same product on the cotangent)."""
         num_nodes = self.num_users + self.num_items + self.num_brands
         ego = torch.cat(
             [self.user_embedding, self.item_embedding, self.brand_embedding], dim=0

@@ -1,13 +1,15 @@
 """Sparse propagation ``A_norm @ emb`` over the degree-bucketed ELL graph.
 
-PyTorch counterpart of ``gcn_recommendation_tpu/ops/spmm.py`` (forward
-only; serving propagates once at load time):
+PyTorch counterpart of ``gcn_recommendation_tpu/ops/spmm.py``:
 
 * ``propagate_ell`` — per bucket a gather, multiply and reduce over the
   padded neighbor axis, the hub rows as one dense matrix product, a
   zeros row for degree-0 nodes, and one gather restoring node order.
   These are ``index_select`` and ``torch.matmul``: the JAX package
-  leaves them to XLA, not to a Pallas kernel.
+  leaves them to XLA, not to a Pallas kernel.  ``A_norm`` is symmetric,
+  so its backward pass is the same gather product applied to the
+  cotangent (a ``torch.autograd.Function``), never autograd's
+  ``index_add_`` scatter through the gathers.
 * ``propagate_coo`` — ``index_add_`` over the dst-sorted COO list; the
   in-port oracle for the ELL path.
 
@@ -130,6 +132,18 @@ def _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
     return torch.cat(parts, dim=0).index_select(0, gather_idx)
 
 
+class _PropagateEll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
+        ctx.graph = (bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+        return _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # A_norm is symmetric: d(emb) = A_norm^T @ grad = A_norm @ grad
+        return (_ell_matvec(grad, *ctx.graph),) + (None,) * 4
+
+
 def propagate_ell(
     emb: torch.Tensor,
     bucket_nbr_idx: Tuple[torch.Tensor, ...],
@@ -137,13 +151,22 @@ def propagate_ell(
     gather_idx: torch.Tensor,
     dense_mat: torch.Tensor,
 ) -> torch.Tensor:
-    """Scatter-free SpMM over the ELL adjacency plus dense hub rows
-    (forward only: serving propagates once, under ``no_grad``)."""
-    return _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+    """Scatter-free SpMM over the ELL adjacency plus dense hub rows,
+    differentiable in ``emb``."""
+    return _PropagateEll.apply(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
 
 
-def propagate(emb: torch.Tensor, graph: DeviceGraph, num_nodes: int, *, path: str = "ell"):
-    """One propagation step ``A_norm @ emb``; ``path`` is 'ell' or 'coo'."""
+def propagate(emb: torch.Tensor, graph, num_nodes: int, *, path: str = "ell"):
+    """One propagation step ``A_norm @ emb``.  ``graph`` is a DeviceGraph
+    (``path`` 'ell' or 'coo') or an ``ops/block_spmm.py``
+    TiledDeviceGraph, which always takes the tile path."""
+    from gcn_recommendation_tpu_torch.ops.block_spmm import (
+        TiledDeviceGraph,
+        propagate_ell_tiles,
+    )
+
+    if isinstance(graph, TiledDeviceGraph):
+        return propagate_ell_tiles(emb, graph.base, graph.tiles)
     if path == "ell":
         return propagate_ell(
             emb, graph.bucket_nbr_idx, graph.bucket_nbr_w, graph.gather_idx,

@@ -2,9 +2,14 @@
 
 PyTorch counterpart of ``gcn_recommendation_tpu/ops/topk.py``.  Filter
 lists are ``[B, F]`` int64 item ids padded with ``N`` (the catalog size),
-which masking drops.  ``torch.topk`` does not promise the lower index
-first on tied scores, as ``lax.top_k`` does; callers comparing with the
-JAX package compare indices outside tie groups only.
+which masking drops.
+
+Tie order.  ``lax.top_k`` puts the lower index first among tied scores;
+``torch.topk`` promises no order.  Hit and NDCG depend on it, so
+evaluation (``topk_eval_batch``) selects with ``stable=True``: a stable
+descending sort, which keeps tied scores in index order.  Serving keeps
+``torch.topk``; callers comparing its indices with the JAX package
+compare them outside tie groups only.
 """
 
 from __future__ import annotations
@@ -13,12 +18,36 @@ import torch
 
 MASK_VALUE = -1e10  # main.py:424
 
+# The JAX package's crossover between comparison and scatter masking
+# (ops/topk.py there, measured on a TPU).  The port only uses it to group
+# evaluation users into filter-width tiers, which changes no metric.
+COMPARE_MAX_WORK = 64 * 20_000
+COMPARE_MAX_F_CAP = 512
+
+
+def compare_max_f(num_items: int) -> int:
+    """Filter width of the first evaluation tier at this catalog size."""
+    return max(1, min(COMPARE_MAX_F_CAP, COMPARE_MAX_WORK // max(num_items, 1)))
+
+
+def _topk(x: torch.Tensor, k: int, stable: bool):
+    if not stable:
+        return torch.topk(x, k, dim=1)
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
 
 def masked_topk(
-    scores: torch.Tensor, filter_idx: torch.Tensor, k: int, *, strategy: str = "auto"
+    scores: torch.Tensor,
+    filter_idx: torch.Tensor,
+    k: int,
+    *,
+    strategy: str = "auto",
+    stable: bool = False,
 ):
     """Top-k of ``scores`` [B, N] with each row's ``filter_idx`` entries
-    set to MASK_VALUE.  Returns (values [B, k], indices [B, k] int64).
+    set to MASK_VALUE.  Returns (values [B, k], indices [B, k] int64);
+    ``stable`` puts the lower index first among tied scores.
 
     * ``scatter`` — one ``scatter_`` into a ``[B, N+1]`` copy, so pad
       index N lands in a spare column (``scatter_`` cannot drop it).
@@ -36,11 +65,11 @@ def masked_topk(
     if strategy == "scatter":
         masked = torch.cat([scores, scores.new_empty((b, 1))], dim=1)
         masked.scatter_(1, filter_idx, MASK_VALUE)
-        return torch.topk(masked[:, :n], k, dim=1)
+        return _topk(masked[:, :n], k, stable)
     if strategy == "compare":
         iota = torch.arange(n, dtype=filter_idx.dtype, device=filter_idx.device)
         seen = (filter_idx[:, :, None] == iota[None, None, :]).any(dim=1)
-        return torch.topk(scores.masked_fill(seen, MASK_VALUE), k, dim=1)
+        return _topk(scores.masked_fill(seen, MASK_VALUE), k, stable)
     raise ValueError(f"unknown masking strategy {strategy!r}")
 
 
@@ -51,7 +80,30 @@ def masked_topk_scores(
     k: int,
     *,
     strategy: str = "auto",
+    stable: bool = False,
 ):
     """Score a user batch against the catalog, mask seen items, top-k."""
     scores = user_emb_batch.float() @ item_emb.float().T
-    return masked_topk(scores, filter_idx, k, strategy=strategy)
+    return masked_topk(scores, filter_idx, k, strategy=strategy, stable=stable)
+
+
+def topk_hit_metrics(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: torch.Tensor):
+    """(recall_sum, ndcg_sum, count) of a top-k index batch against the
+    leave-one-out held-out items (main.py:430-438: recall = hit
+    indicator, ndcg = 1/log2(pos+2) on a hit), over the ``valid`` rows."""
+    hit_matrix = topk_idx == true_items[:, None]
+    hit = hit_matrix.any(dim=1)
+    pos = hit_matrix.int().argmax(dim=1)
+    ndcg = torch.where(
+        hit, 1.0 / torch.log2(pos.float() + 2.0), torch.zeros_like(pos, dtype=torch.float32)
+    )
+    validf = valid.float()
+    return (hit.float() * validf).sum(), (ndcg * validf).sum(), validf.sum()
+
+
+def topk_eval_batch(user_emb, item_emb, users, true_items, filter_idx, valid, k: int):
+    """One evaluation batch: masked top-k of the batch users' scores in
+    ``lax.top_k``'s tie order, then its (recall_sum, ndcg_sum, count)."""
+    u = user_emb.index_select(0, users)
+    _, topk_idx = masked_topk_scores(u, item_emb, filter_idx, k, stable=True)
+    return topk_hit_metrics(topk_idx, true_items, valid)

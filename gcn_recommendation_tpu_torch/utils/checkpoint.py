@@ -1,17 +1,26 @@
-"""Minimal model checkpoints: the params dict with ``torch.save``.
+"""Checkpoints with ``torch.save``: params alone, or the full training state.
 
-The JAX package writes Orbax checkpoints (params, Adam state, epoch,
-best metric, RNG key) that cannot be read without JAX.  This slice
-serves, so a checkpoint here carries the params only: a dict of
-``user_embedding`` / ``item_embedding`` / ``brand_embedding`` float
-tensors at logical (unpadded) shapes, stored on the CPU.  A checkpoint
-lives at ``<dir>/<tag>.pt``; ``best`` is the tag serving reads.
+The JAX package writes Orbax checkpoints that cannot be read without
+JAX.  The port writes ``<dir>/<tag>.pt``, with tags ``best`` and ``last``
+as the JAX trainer uses them:
+
+* ``save_params`` — the params dict alone: ``user_embedding`` /
+  ``item_embedding`` / ``brand_embedding`` float tensors at logical
+  shapes, on the CPU;
+* ``save_state`` — the full training state: ``{"params", "optimizer"
+  (``torch.optim.Adam.state_dict()``), "epoch", "best_recall",
+  "generator" (the sampling generator's state)}``.
+
+``load_params`` reads either kind, so serving reads what training
+wrote.  Every file is written to a temporary name and then moved into
+place with ``os.replace``: a crash leaves the old checkpoint or the new
+one, never a torn file.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -22,23 +31,65 @@ def checkpoint_path(ckpt_dir: str, tag: str = "best") -> str:
     return os.path.join(ckpt_dir, f"{tag}.pt")
 
 
-def save_params(ckpt_dir: str, params: Dict[str, torch.Tensor], tag: str = "best") -> str:
-    """Write ``params`` (moved to the CPU) atomically; returns the path."""
+def _cpu(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().contiguous() for k, v in params.items()}
+
+
+def _atomic_save(obj, ckpt_dir: str, tag: str) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, tag)
     tmp = path + ".tmp"
-    torch.save({k: v.detach().cpu().contiguous() for k, v in params.items()}, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_params(ckpt_dir: str, params: Dict[str, torch.Tensor], tag: str = "best") -> str:
+    """Write ``params`` (moved to the CPU) atomically; returns the path."""
+    return _atomic_save(_cpu(params), ckpt_dir, tag)
+
+
+def save_state(
+    ckpt_dir: str,
+    tag: str,
+    params: Dict[str, torch.Tensor],
+    optimizer_state: Dict[str, Any],
+    epoch: int,
+    best_recall: float,
+    generator_state: torch.Tensor,
+) -> str:
+    """Write the full training state atomically; returns the path."""
+    state = {
+        "params": _cpu(params),
+        "optimizer": optimizer_state,
+        "epoch": int(epoch),
+        "best_recall": float(best_recall),
+        "generator": generator_state.cpu(),
+    }
+    return _atomic_save(state, ckpt_dir, tag)
+
+
+def load_state(ckpt_dir: str, tag: str = "last") -> Optional[Dict[str, Any]]:
+    """The state ``save_state`` wrote (tensors on the CPU), or None when no
+    checkpoint exists."""
+    path = checkpoint_path(ckpt_dir, tag)
+    if not os.path.exists(path):
+        return None
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "params" not in state:
+        raise ValueError(f"'{path}' holds params only, not a training state")
+    return state
 
 
 def load_params(
     ckpt_dir: str, tag: str = "best", device: DeviceLike = None
 ) -> Optional[Dict[str, torch.Tensor]]:
-    """The params dict on ``device``, or None when no checkpoint exists."""
+    """The params dict on ``device`` from a params-only or a full-state
+    checkpoint, or None when no checkpoint exists."""
     dev = resolve_device(device)
     path = checkpoint_path(ckpt_dir, tag)
     if not os.path.exists(path):
         return None
     state = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.to(dev) for k, v in state.items()}
+    params = state.get("params", state)
+    return {k: v.to(dev) for k, v in params.items()}

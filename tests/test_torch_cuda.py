@@ -1,0 +1,112 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA card and skips without one.  The file
+imports neither JAX nor the JAX package, so it runs on a machine that
+has only PyTorch; there, skip the JAX-importing ``conftest.py``:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gcn_recommendation_tpu_torch.config import Config
+from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
+from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
+from gcn_recommendation_tpu_torch.models import get_model
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant
+from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+from gcn_recommendation_tpu_torch.train.trainer import Trainer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def bundle():
+    # 1,730 nodes: the last 128-row column block is ragged
+    return synthetic_bundle(1000, 700, 30, mean_degree=20.0, core=4, seed=1)
+
+
+def test_kernel_matches_plain_on_card(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    for n, d in ((20_000, 64), (1_000, 48), (7, 200)):
+        x = torch.randn((n, d), generator=gen, device=card)
+        before = quant.quantize_rows_int8.launches
+        q_k, s_k = quant.quantize_rows_int8(x, seed=3)
+        assert quant.quantize_rows_int8.launches == before + 1
+        q_p, s_p = quant._quantize_rows_int8_reference(x, seed=3)
+        torch.cuda.synchronize()
+        assert torch.equal(q_k, q_p) and torch.equal(s_k, s_p)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 64), (torch.float32, 48), (torch.float32, 16), (torch.bfloat16, 32),
+])
+def test_tile_kernel_matches_plain_on_card(card, bundle, dtype, d):
+    g = bundle.graph
+    part = partition_tiles(g, min_fill=16, tiles_per_step=8)
+    assert g.num_nodes % 128 and part is not None
+    tiles = block_spmm.to_device_tiles(part, tile_dtype=dtype, device=card)
+    e = torch.randn((g.num_nodes, d), generator=torch.Generator(device=card).manual_seed(d),
+                    device=card)
+    before = block_spmm.tile_matvec.launches
+    out = block_spmm.tile_matvec(e, tiles)
+    assert block_spmm.tile_matvec.launches == before + 1
+    ref = block_spmm._tile_matvec_reference(e, tiles)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 1e-3 * ref.abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def test_tile_kernel_refuses_what_it_cannot_take(card, bundle):
+    part = partition_tiles(bundle.graph, min_fill=16, tiles_per_step=8)
+    tiles = block_spmm.to_device_tiles(part, device=card)
+    n = bundle.graph.num_nodes
+    with pytest.raises(ValueError, match="multiple of 4"):
+        block_spmm.tile_matvec(torch.zeros((n, 6), device=card), tiles)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        block_spmm.tile_matvec(torch.zeros((n, 132), device=card), tiles)
+    with pytest.raises(ValueError, match="aligned"):
+        block_spmm.tile_matvec(torch.zeros((n * 8 + 1,), device=card)[1:].view(n, 8), tiles)
+    cpu_tiles = block_spmm.to_device_tiles(part, device="cpu")
+    with pytest.raises(ValueError, match="tiles on cpu"):
+        block_spmm.tile_matvec(torch.zeros((n, 8), device=card), cpu_tiles)
+
+
+def test_tile_gradient_matches_ell_on_card(card, bundle):
+    g = bundle.graph
+    part = partition_tiles(g, min_fill=16, tiles_per_step=8)
+    res, full = to_device_graph(part.residual, device=card), to_device_graph(g, device=card)
+    tiles = block_spmm.to_device_tiles(part, device=card)
+    x = torch.randn((g.num_nodes, 32), device=card).requires_grad_(True)
+    (g_tile,) = torch.autograd.grad((block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
+    (g_ell,) = torch.autograd.grad((propagate_ell(
+        x, full.bucket_nbr_idx, full.bucket_nbr_w, full.gather_idx, full.dense_mat) ** 2).sum(), x)
+    assert (g_tile - g_ell).abs().max().item() <= 1e-4
+
+
+def test_train_step_launches_the_kernel_twice_per_layer(card, bundle):
+    losses = {}
+    for tile in (True, False):
+        cfg = Config(embedding_dim=32, n_layers=3, batch_size=512, tile_spmm=tile,
+                     tile_min_fill=16)
+        m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=card)
+        m.init(torch.Generator().manual_seed(0))
+        tr = Trainer(cfg, m, bundle)
+        rng = np.random.default_rng(0)
+        rows = torch.from_numpy(rng.integers(0, len(bundle.train), 512)).to(card)
+        neg = torch.from_numpy(rng.integers(0, bundle.num_items, 512)).to(card)
+        before = block_spmm.tile_matvec.launches
+        losses[tile] = tr.train_step(tr.train_users[rows], tr.train_items[rows], neg).item()
+        assert block_spmm.tile_matvec.launches - before == (6 if tile else 0)
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)

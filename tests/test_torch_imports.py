@@ -27,7 +27,9 @@ def _port_modules():
 def test_port_lists_its_modules():
     mods = _port_modules()
     for m in ("ops.quant", "ops.spmm", "ops.topk", "serve", "cli", "kernels._build",
-              "models.lightgcn", "models.convert", "utils.checkpoint", "core.device"):
+              "models.lightgcn", "models.convert", "utils.checkpoint", "core.device",
+              "ops.block_spmm", "graph.tiles", "data.sampler", "train.loss",
+              "train.evaluate", "train.trainer", "utils.logging"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -66,9 +68,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
     _no_card()
     from gcn_recommendation_tpu_torch.config import Config
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
+    from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
     from gcn_recommendation_tpu_torch.models import get_model
     from gcn_recommendation_tpu_torch.models.convert import params_from_jax
+    from gcn_recommendation_tpu_torch.ops.block_spmm import to_device_tiles
     from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
+    from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches
     from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
 
     b = synthetic_bundle(40, 30, 4, seed=0)
@@ -78,6 +83,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         lambda: params_from_jax({k: np.zeros((2, 2)) for k in
                                  ("user_embedding", "item_embedding", "brand_embedding")}),
         lambda: load_params(str(tmp_path)),
+        lambda: to_device_tiles(partition_tiles(b.graph, min_fill=1)),
+        lambda: build_eval_batches(b.val, b.train, b.num_users, b.num_items),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -88,8 +95,9 @@ def test_cli_without_device_raises_without_cuda(tmp_path):
     _no_card()
     from gcn_recommendation_tpu_torch import cli
 
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["recommend", "--processed_dir", str(tmp_path), "--users", "0"])
+    for mode in ("recommend", "train", "test"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([mode, "--processed_dir", str(tmp_path)])
 
 
 def test_chip_smoke_fails_without_cuda():

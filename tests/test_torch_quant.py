@@ -3,7 +3,7 @@
 The Pallas kernel runs in interpret mode, as tests/test_quant.py runs it;
 its interpreter PRNG yields zero bits, so it is compared with the port's
 shared arithmetic at ``u = 0``.  The CUDA kernel itself is compared with
-its plain version on the card (``test_kernel_matches_plain_on_card`` and
+its plain version on the card (``tests/test_torch_cuda.py`` and
 chip_smoke.py).
 """
 
@@ -158,17 +158,3 @@ def test_kernel_route_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         quant.quantize_rows_int8(x)
 
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, d in ((20_000, 64), (1_000, 48), (7, 200)):
-        x = torch.randn((n, d), generator=gen, device="cuda")
-        before = quant.quantize_rows_int8.launches
-        q_k, s_k = quant.quantize_rows_int8(x, seed=3)
-        assert quant.quantize_rows_int8.launches == before + 1
-        q_p, s_p = quant._quantize_rows_int8_reference(x, seed=3)
-        torch.cuda.synchronize()
-        assert torch.equal(q_k, q_p) and torch.equal(s_k, s_p)
