@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: the serving and training paths.
+"""Chip smoke test of the PyTorch/CUDA port: serving, training (both model
+families), the tile experiment and row padding.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,7 @@ fails:
 5. kernel check: ``tile_matvec`` (``csrc/tile_spmm.cu``) against its plain
    version on the same bundle's tile partition (min_fill 64, 8 tiles per
    step, d = 64) with f32 tiles (max abs diff <= 1e-5) and bf16 tiles
-   (<= 1e-3 * max|plain|), and on a ragged partition (N not a multiple of
+   (<= 1e-5 * max(1, max|plain|)), and on a ragged partition (N not a multiple of
    128, d = 48); the ``propagate_ell_tiles`` gradient of ``sum(out**2)``
    against the plain ELL path's within 1e-4; times beside the bound and
    beside ``torch.sparse.mm`` of the tile edges as a CSR matrix;
@@ -36,7 +37,30 @@ fails:
    the two paths' per-step losses within rtol 2e-3, the loss falling,
    ``tile_matvec`` launched exactly 6 times a step plus 3 for the
    validation forward, Recall@20 / NDCG@20 in [0, 1], and the ``best``
-   checkpoint serving a 64-user request through ``Retriever``.
+   checkpoint serving a 64-user request through ``Retriever``;
+7. the tile experiment (``tools/exp_block_tiles.py``: the kernel of phase
+   5 on dense, balanced tiles, 16 tiles in each of 384 row blocks, 564
+   column blocks, d = 64, seed 0): kernel against the experiment's plain
+   formula at one tile per step with f32 and with bf16 tiles and at 8
+   tiles per step with f32 (all <= 1e-5 * max(1, max|plain|); the bf16
+   kernel is also held against the product with the window left in f32,
+   which must lie outside that limit), the one-tile result against the
+   8-tile result,
+   the 30-application chain of each, launches counted from 0 around the
+   experiment's own calls (1 + 2 * 30 a case), times beside the bound and
+   beside a ``torch.sparse_bsr_tensor`` product of the same tiles;
+8. the ``LightGCN_Fusion`` path on the same bundle with a [20000, 64]
+   content matrix from a seed: a tile ``Trainer`` and its ELL twin take
+   the same 20 steps.  Checked: finite, falling losses, the two paths
+   within rtol 2e-3, ``tile_matvec`` launched 6 a step plus 3 for the
+   validation, the content buffer bit-equal before and after, the fusion
+   kernel changed, a ``best`` checkpoint of six keys that reloads and
+   serves 64 users from the f32 and the int8 catalog (the quantizer
+   launched once, top-20 overlap >= 0.9);
+9. row padding: the phase-4 LightGCN params in a model with
+   ``set_row_multiple`` 8 and 48 over the padded graph give final
+   embeddings within 1e-6 of the unpadded forward, on the ELL path and on
+   the tile path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -66,23 +90,32 @@ from gcn_recommendation_tpu_torch.graph.tiles import TILE, partition_tiles
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import block_spmm, quant
-from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+from gcn_recommendation_tpu_torch.ops.spmm import (
+    propagate_ell,
+    to_device_graph,
+    to_device_graph_auto,
+)
 from gcn_recommendation_tpu_torch.serve import Retriever
+from gcn_recommendation_tpu_torch.tools import exp_block_tiles
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense (bf16 x bf16 is exact in f32)
 QUANT_OPS_PER_ELEMENT = 20    # hash (~12 integer ops) + divide, add, floor, clamp
 REQUEST_SIZES = (1, 7, 64, 1024)
 K = 20
 PROPAGATION_ATOL = 1e-5       # f32 ELL vs f32 COO: same sums, other order
 MIN_INT8_OVERLAP = 0.9
 TILE_F32_ATOL = 1e-5          # f32 kernel vs plain: same products, other sum order
-TILE_BF16_RTOL = 1e-3         # bf16 tiles: exact products, f32 sums; x max|plain|
+TILE_BF16_RTOL = 1e-5         # bf16 tiles, x max(1, max|plain|): the plain version rounds
+                              # the window as the kernel does, so products are exact too
 TILE_GRAD_ATOL = 1e-4         # tile vs ELL gradient of sum(out**2)
 TRAIN_STEPS = 20
 TRAIN_LOSS_RTOL = 2e-3        # tile vs ELL per-step loss (tests/test_tile_spmm.py)
+PADDING_ATOL = 1e-6           # padded vs unpadded forward: same sums, tables of |x| <= 0.011
+PAD_MULTIPLES = (8, 48)       # 8 pads only ELL bucket rows here; 48 pads every table too
 
 
 def _cuda_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
@@ -292,15 +325,19 @@ def _tile_bound_ms(tiles, n: int, d: int):
     """Least time for one ``tile_matvec`` on the card: each input read
     once (tile values, column ids, step pointers, the [n, d] embedding),
     the output written once, against the operations this data needs (two
-    per nonzero tile value and column).  Also returns the time of the
-    dense tile products alone (the work the TPU kernel's formulation does)."""
+    per nonzero tile value and column, at the float32 rate outside the
+    tensor cores for f32 tiles and at the bf16 tensor-core rate for bf16).
+    Also returns the time of the dense tile products alone (the work the
+    TPU kernel's formulation does)."""
     a = tiles.tile_a
     nbytes = (a.numel() * a.element_size() + 4 * tiles.num_tiles
               + 4 * (tiles.n_row_blocks + 1) + 4 * n * d
               + 4 * tiles.n_row_blocks * TILE * d)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * int((a != 0).sum()) * d / FP32_OPS_PER_S * 1e3
-    dense_ms = 2 * tiles.num_tiles * TILE * TILE * d / FP32_OPS_PER_S * 1e3
+    # bf16 tiles meet a bf16-rounded window: exact products on the tensor cores
+    rate = BF16_OPS_PER_S if a.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    ops_ms = 2 * int((a != 0).sum()) * d / rate * 1e3
+    dense_ms = 2 * tiles.num_tiles * TILE * TILE * d / rate * 1e3
     bound = max(bytes_ms, ops_ms)
     return bound, "bytes" if bytes_ms >= ops_ms else "operations", dense_ms
 
@@ -334,7 +371,7 @@ def _check_tile_kernel(part, n: int, d: int, dev, what: str):
             check(err <= TILE_F32_ATOL,
                   f"tile_matvec f32 kernel matches plain on {what} (max abs diff {err:.3g})")
         else:
-            check(err <= TILE_BF16_RTOL * scale,
+            check(err <= TILE_BF16_RTOL * max(1.0, scale),
                   f"tile_matvec bf16 kernel matches plain on {what} "
                   f"(max abs diff {err:.3g}, max|plain| {scale:.3g})")
         out[dtype] = (tiles, emb, err)
@@ -454,17 +491,18 @@ def _profile_steps(trainer, users, pos, neg, steps: int = 5):
             "top_kernels_ms_per_step": top}
 
 
-def phase_train(dev, bundle):
-    """Drive the training path with tiles and its ELL twin; returns the
-    tile kernel's launches on the path."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+def _twin_trainers(dev, bundle, tmp, model_name, content=None):
+    """A ``tile_spmm`` trainer and its ELL twin from the same params;
+    returns ({True: tile, False: ell}, build seconds of each)."""
     trainers, build_s = {}, {}
     params = None
     for tile in (True, False):
         cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048, tile_spmm=tile,
-                     tile_min_fill=64, checkpoint_dir=tmp, results_dir=tmp)
-        model = get_model("LightGCN")(
-            bundle.num_users, bundle.num_items, bundle.num_brands, cfg, device=dev)
+                     tile_min_fill=64, checkpoint_dir=tmp, results_dir=tmp,
+                     model_name=model_name)
+        model = get_model(model_name)(
+            bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+            pretrained_item_emb=content, device=dev)
         if params is None:
             params = model.init(torch.Generator().manual_seed(42))
         else:
@@ -473,17 +511,23 @@ def phase_train(dev, bundle):
         trainers[tile] = Trainer(cfg, model, bundle)
         torch.cuda.synchronize()
         build_s[tile] = time.perf_counter() - t0
-    tr = trainers[True]
-    check(isinstance(tr.graph, block_spmm.TiledDeviceGraph), "tile trainer runs the tiles")
+    check(isinstance(trainers[True].graph, block_spmm.TiledDeviceGraph),
+          f"{model_name}: the tile trainer runs the tiles")
+    return trainers, build_s
 
+
+def _twin_batches(dev, tr, bundle):
+    """The same ``TRAIN_STEPS`` batches and negatives for both twins."""
     gen = torch.Generator(device=dev).manual_seed(0)
     idx = epoch_batches(gen, tr.n_train, 2048, dev)[:TRAIN_STEPS]
     users, pos = tr.train_users[idx], tr.train_items[idx]
     neg = sample_negatives(gen, users, tr.pos_keys, num_items=bundle.num_items)
+    return users, pos, neg
 
-    # --- the main path: counts from 0, read right after ---
-    torch.cuda.reset_peak_memory_stats()
-    block_spmm.tile_matvec.launches = 0
+
+def _twin_steps(trainers, users, pos, neg):
+    """``TRAIN_STEPS`` steps on each twin; per-step losses and ms per step
+    (host clock around synchronised work, the first step left out)."""
     losses, step_ms = {}, {}
     for tile in (True, False):
         t = trainers[tile]
@@ -495,28 +539,49 @@ def phase_train(dev, bundle):
         torch.cuda.synchronize()
         step_ms[tile] = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
         losses[tile] = torch.stack(out).cpu().numpy()
+    return losses, step_ms
+
+
+def _check_twin_run(name, losses, launches, recall, ndcg):
+    """Finite falling losses, the two paths together, the launch count;
+    returns the largest relative loss gap."""
+    for tile, path in ((True, "tile"), (False, "ELL")):
+        lo = losses[tile]
+        check(np.isfinite(lo).all(), f"{name} {path} path: {TRAIN_STEPS} finite step losses")
+        check(lo[-5:].mean() < lo[:5].mean(),
+              f"{name} {path} path: loss falls ({lo[:5].mean():.5f} -> {lo[-5:].mean():.5f})")
+    rel = np.abs(losses[True] - losses[False]) / np.abs(losses[False])
+    check(rel.max() <= TRAIN_LOSS_RTOL,
+          f"{name}: tile and ELL step losses agree (max rel diff {rel.max():.3g})")
+    want = 6 * TRAIN_STEPS + 3
+    check(launches == want,
+          f"{name}: tile_matvec launched {launches}x = 6 per step x {TRAIN_STEPS} "
+          f"+ 3 for validation")
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (recall, ndcg)),
+          f"{name}: validation Recall@20 {recall:.4f}, NDCG@20 {ndcg:.4f}")
+    return float(rel.max())
+
+
+def phase_train(dev, bundle):
+    """Drive the training path with tiles and its ELL twin; returns the
+    tile kernel's launches on the path and the ms per step of each twin."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trainers, build_s = _twin_trainers(dev, bundle, tmp, "LightGCN")
+    tr = trainers[True]
+    users, pos, neg = _twin_batches(dev, tr, bundle)
+
+    # --- the main path: counts from 0, read right after ---
+    torch.cuda.reset_peak_memory_stats()
+    block_spmm.tile_matvec.launches = 0
+    losses, step_ms = _twin_steps(trainers, users, pos, neg)
     recall, ndcg = tr.validate()
     launches = {"tile_matvec": block_spmm.tile_matvec.launches}
     # --- end of the main path ---
 
-    for tile, name in ((True, "tile"), (False, "ELL")):
-        lo = losses[tile]
-        check(np.isfinite(lo).all(), f"{name} path: {TRAIN_STEPS} finite step losses")
-        check(lo[-5:].mean() < lo[:5].mean(),
-              f"{name} path: loss falls ({lo[:5].mean():.5f} -> {lo[-5:].mean():.5f})")
-    rel = np.abs(losses[True] - losses[False]) / np.abs(losses[False])
-    check(rel.max() <= TRAIN_LOSS_RTOL,
-          f"tile and ELL step losses agree (max rel diff {rel.max():.3g})")
-    want = 6 * TRAIN_STEPS + 3
-    check(launches["tile_matvec"] == want,
-          f"tile_matvec launched {launches['tile_matvec']}x = 6 per step x {TRAIN_STEPS} "
-          f"+ 3 for validation")
-    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (recall, ndcg)),
-          f"validation Recall@20 {recall:.4f}, NDCG@20 {ndcg:.4f}")
+    rel_max = _check_twin_run("LightGCN", losses, launches["tile_matvec"], recall, ndcg)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    ckpt.save_state(tmp, "best", tr.model.params(), tr.optimizer.state_dict(), 1, recall,
-                    tr.generator.get_state())
+    tr.save_checkpoint(tmp, "best", 1, recall)
     served = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands,
                                    Config(embedding_dim=64, n_layers=3), device=dev)
     r = Retriever.from_params(served, ckpt.load_params(tmp, device=dev), bundle)
@@ -544,7 +609,7 @@ def phase_train(dev, bundle):
         "propagation_fwd_bwd_ms_ell": prop_ms[False],
         "loss_first_tile": float(losses[True][0]),
         "loss_last_tile": float(losses[True][-1]),
-        "loss_max_rel_diff": float(rel.max()),
+        "loss_max_rel_diff": rel_max,
         # after 20 Adam steps: how far apart the two paths' tables are
         "params_max_abs_diff": max(
             (trainers[True].model.params()[k] - trainers[False].model.params()[k])
@@ -557,7 +622,267 @@ def phase_train(dev, bundle):
     for tile, name in ((True, "tile"), (False, "ell")):
         prof = _profile_steps(trainers[tile], users, pos, neg)
         print(f"profile_{name}: " + json.dumps(prof), flush=True)
+    return launches, step_ms
+
+
+def _tile_bsr(layout, dev):
+    """The experiment's tiles as one BSR matrix [R*128, n_blocks*128] with
+    128x128 blocks, duplicate (row block, column block) tiles summed
+    first (the library yardstick)."""
+    n_blocks = layout.e.shape[0] // TILE
+    rows = np.repeat(np.arange(layout.r_blocks, dtype=np.int64), layout.m)
+    uniq, inv = np.unique(rows * n_blocks + layout.tile_col, return_inverse=True)
+    blocks = torch.zeros((len(uniq), TILE, TILE), device=dev)
+    blocks.index_add_(0, torch.from_numpy(inv).to(dev), torch.from_numpy(layout.tile_a).to(dev))
+    crow = np.searchsorted(uniq // n_blocks, np.arange(layout.r_blocks + 1), side="left")
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(crow).to(dev), torch.from_numpy(uniq % n_blocks).to(dev), blocks,
+        size=(layout.r_blocks * TILE, n_blocks * TILE),
+    )
+
+
+def phase_exp_tiles(dev):
+    """The tile experiment at its full layout: each case through the
+    experiment's own run_case with the launches counted from 0, then the
+    kernel alone beside its plain formula, its bound and the library's
+    BSR product.  Returns the records of the single-tile and the batched
+    kernel."""
+    t0 = time.perf_counter()
+    layout = exp_block_tiles.make_layout(seed=0)
+    n, d = layout.e.shape
+    print(f"exp_tiles layout: {layout.num_tiles} tiles, {layout.r_blocks} row blocks x "
+          f"{layout.m}, embedding {list(layout.e.shape)}, made in "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    cases = {"x1_f32": (1, torch.float32), "x1_bf16": (1, torch.bfloat16),
+             "x2_f32": (8, torch.float32)}
+
+    # --- the experiment's path: counts from 0 before each case, read right after ---
+    runs, launches = {}, {}
+    for name, (tb, dtype) in cases.items():
+        block_spmm.tile_matvec.launches = 0
+        runs[name] = exp_block_tiles.run_case(layout, tb, dtype, dev)
+        launches[name] = block_spmm.tile_matvec.launches
+    # --- end of the experiment's path ---
+
+    want = 1 + 2 * exp_block_tiles.CHAIN
+    for name, r in runs.items():
+        check(r["max_abs_err"] <= r["tol"],
+              f"exp_tiles {name}: kernel matches the plain formula (max abs diff "
+              f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}, max|plain| {r['scale']:.3g})")
+        check(launches[name] == want,
+              f"exp_tiles {name}: launched {launches[name]}x = 1 check + 2 chains of "
+              f"{exp_block_tiles.CHAIN}")
+        check(np.isfinite(r["chain_sum"]),
+              f"exp_tiles {name}: finite chain sum {r['chain_sum']:.6g}")
+        print(f"exp_tiles {name}: " + json.dumps(r), flush=True)
+
+    e = torch.from_numpy(layout.e).to(dev)
+    tiles = {name: exp_block_tiles.device_tiles(layout, tb, dtype, dev)
+             for name, (tb, dtype) in cases.items()}
+    out1 = block_spmm.tile_matvec(e, tiles["x1_f32"])
+    out2 = block_spmm.tile_matvec(e, tiles["x2_f32"])
+    torch.cuda.synchronize()
+    gap, scale = (out1 - out2).abs().max().item(), out1.abs().max().item()
+    check(gap <= exp_block_tiles.RTOL * max(1.0, scale),
+          f"exp_tiles: one tile per step equals 8 tiles per step (max abs diff {gap:.3g}, "
+          f"max|out| {scale:.3g})")
+    # the bf16 limit tells a rounded window from an unrounded one
+    outb = block_spmm.tile_matvec(e, tiles["x1_bf16"])
+    off = (outb - exp_block_tiles.reference(e, tiles["x1_bf16"], layout.m, round_window=False)
+           ).abs().max().item()
+    del outb
+    check(off > 10 * runs["x1_bf16"]["tol"],
+          f"exp_tiles x1_bf16: the limit {runs['x1_bf16']['tol']:.3g} refuses a window left in "
+          f"f32 (the kernel is {off:.3g} from that product)")
+    sums = [runs[k]["chain_sum"] for k in ("x1_f32", "x2_f32")]
+    check(abs(sums[0] - sums[1]) <= 1e-3 * max(1.0, abs(sums[0])),
+          f"exp_tiles: both chains end in the same sum ({sums[0]:.6g}, {sums[1]:.6g})")
+
+    ms = {name: _cuda_ms(lambda t=t: block_spmm.tile_matvec(e, t)) for name, t in tiles.items()}
+    plain_ms = {name: _cuda_ms(lambda t=t: exp_block_tiles.reference(e, t, layout.m),
+                               reps=3, windows=3, warmup=1) for name, t in tiles.items()}
+    bounds = {name: _tile_bound_ms(t, n, d) for name, t in tiles.items()}
+
+    # what the last, partly filled wave of row blocks costs: the same tiles
+    # cut to 132 and 264 row blocks (one and two thread blocks per SM)
+    by_rows = {}
+    for r in sorted({132, 264, layout.r_blocks}):
+        if r <= layout.r_blocks:
+            sub = block_spmm.tiles_from_arrays(
+                layout.tile_a[: r * layout.m], layout.tile_col[: r * layout.m],
+                np.repeat(np.arange(r, dtype=np.int32), layout.m), 1, r, device=dev)
+            by_rows[r] = _cuda_ms(lambda sub=sub: block_spmm.tile_matvec(e, sub))
+    print("exp_tiles ms_by_row_blocks: " + json.dumps(by_rows), flush=True)
+
+    # library yardstick: one BSR product; "none" with the reason where this
+    # PyTorch build has no such product on the card
+    library_ms, library_note = None, None
+    try:
+        bsr = _tile_bsr(layout, dev)
+        lib = torch.sparse.mm(bsr, e)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        library_note = f"none: {type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+    else:
+        lerr = (lib - out1).abs().max().item()
+        check(lerr <= 1e-4 * max(1.0, scale),
+              f"exp_tiles: the BSR product equals the kernel (max abs diff {lerr:.3g})")
+        library_ms = _cuda_ms(lambda: torch.sparse.mm(bsr, e), reps=5, windows=3, warmup=1)
+        library_note = "torch.sparse.mm of a sparse_bsr_tensor with 128x128 blocks"
+    print(f"exp_tiles library: {library_note}, ms {library_ms}", flush=True)
+
+    def record(name, replaces, main, launched):
+        bound_ms, bound_by, dense_ms = bounds[main]
+        r = runs[main]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
+            "replaces": replaces,
+            "shape": [layout.num_tiles, TILE, TILE, d],
+            "tiles_per_step": r["tiles_per_step"],
+            "launches": launched,
+            "max_abs_err": r["max_abs_err"],
+            "ms": ms[main],
+            "plain_ms": plain_ms[main],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_rate": "67 TFLOP/s float32 and 3.35 TB/s",
+            "library_ms": library_ms,
+            "library": library_note,
+            "chain_ms_per_application": r["ms"],
+            "chain_gb_per_s": r["gb_per_s"],
+            "chain_ns_per_tile": r["ns_per_tile"],
+            "ns_per_tile": ms[main] / layout.num_tiles * 1e6,
+            "dense_products_ms": dense_ms,
+        }
+
+    x1 = record("exp_tiles_single (tile_matvec, 1 tile per step)",
+                "tools/exp_block_pallas.py:73", "x1_f32",
+                launches["x1_f32"] + launches["x1_bf16"])
+    b_ms, b_by, _ = bounds["x1_bf16"]
+    rb = runs["x1_bf16"]
+    x1.update({
+        "bf16_max_abs_err": rb["max_abs_err"], "bf16_ms": ms["x1_bf16"],
+        "bf16_plain_ms": plain_ms["x1_bf16"], "bf16_bound_ms": b_ms, "bf16_bound_by": b_by,
+        "bf16_bound_rate": "989 TFLOP/s bf16 tensor cores and 3.35 TB/s",
+        "bf16_chain_ms_per_application": rb["ms"], "bf16_chain_gb_per_s": rb["gb_per_s"],
+        "bf16_chain_ns_per_tile": rb["ns_per_tile"],
+    })
+    x2 = record("exp_tiles_batched (tile_matvec, 8 tiles per step)",
+                "tools/exp_block_pallas.py:185", "x2_f32", launches["x2_f32"])
+    x2["max_abs_diff_vs_single"] = gap
+    return x1, x2
+
+
+def phase_fusion(dev, bundle, lightgcn_step_ms):
+    """Drive the LightGCN_Fusion path: tile trainer and ELL twin, a
+    validation, the ``best`` checkpoint, and serving from it with the f32
+    and the int8 catalog.  Returns the kernels' launches on the path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fusion_")
+    content = np.random.default_rng(7).standard_normal(
+        (bundle.num_items, 64)).astype(np.float32)
+    trainers, build_s = _twin_trainers(dev, bundle, tmp, "LightGCN_Fusion", content)
+    tr = trainers[True]
+    users, pos, neg = _twin_batches(dev, tr, bundle)
+    before = {k: v.clone() for k, v in tr.model.params().items()}
+    users64 = np.unique(bundle.train.user_idx)[:64]
+
+    # --- the main path: counts from 0, read right after ---
+    torch.cuda.reset_peak_memory_stats()
+    block_spmm.tile_matvec.launches = 0
+    quant.quantize_rows_int8.launches = 0
+    losses, step_ms = _twin_steps(trainers, users, pos, neg)
+    recall, ndcg = tr.validate()
+    tr.save_checkpoint(tmp, "best", 1, recall)
+    loaded = ckpt.load_params(tmp, device=dev)
+    served = get_model("LightGCN_Fusion")(
+        bundle.num_users, bundle.num_items, bundle.num_brands,
+        Config(embedding_dim=64, n_layers=3), pretrained_item_emb=content, device=dev)
+    rf = Retriever.from_params(served, loaded, bundle)
+    rq = Retriever.from_params(served, loaded, bundle, quantize=True)
+    (v_f, i_f), (v_q, i_q) = rf.recommend(users64, k=K), rq.recommend(users64, k=K)
+    launches = {"tile_matvec": block_spmm.tile_matvec.launches,
+                "quantize_rows_int8": quant.quantize_rows_int8.launches}
+    # --- end of the main path ---
+
+    rel_max = _check_twin_run("LightGCN_Fusion", losses, launches["tile_matvec"], recall, ndcg)
+    check(launches["quantize_rows_int8"] == 1,
+          f"Fusion int8 load launched the quantizer {launches['quantize_rows_int8']}x")
+    after = tr.model.params()
+    check(len(tr.optimizer.param_groups[0]["params"]) == 5
+          and not tr.model.item_content_embedding.requires_grad
+          and torch.equal(after["item_content_embedding"], before["item_content_embedding"])
+          and torch.equal(after["item_content_embedding"].cpu(), torch.from_numpy(content)),
+          "Fusion: the content buffer is outside the optimizer and bit-equal after training")
+    moved = (after["fusion_kernel"] - before["fusion_kernel"]).abs().max().item()
+    check(moved > 0, f"Fusion: fusion_kernel trained (max abs change {moved:.3g})")
+    state = ckpt.load_state(tmp, "best")
+    check(set(state["params"]) == set(tr.model.param_keys) and len(state["params"]) == 6
+          and len(state["optimizer"]["state"]) == 5
+          and all(torch.equal(loaded[k], after[k]) for k in tr.model.param_keys),
+          "Fusion: the best checkpoint holds six keys and five moment pairs, and reloads")
+    for name, v in (("f32", v_f), ("int8", v_q)):
+        check(v.shape == (64, K) and np.isfinite(v).all(),
+              f"Fusion: the checkpoint serves 64 users from the {name} catalog")
+    overlap = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(i_f, i_q)]))
+    check(overlap >= MIN_INT8_OVERLAP,
+          f"Fusion: int8 top-{K} overlaps f32 top-{K} by {overlap:.4f} over 64 users")
+    meas = {
+        "steps": TRAIN_STEPS,
+        "batch": 2048,
+        "ms_per_step_tile": step_ms[True],
+        "ms_per_step_ell": step_ms[False],
+        "lightgcn_ms_per_step_tile": lightgcn_step_ms[True],
+        "lightgcn_ms_per_step_ell": lightgcn_step_ms[False],
+        "trainer_build_s_tile": build_s[True],
+        "trainer_build_s_ell": build_s[False],
+        "loss_first_tile": float(losses[True][0]),
+        "loss_last_tile": float(losses[True][-1]),
+        "loss_max_rel_diff": rel_max,
+        "fusion_kernel_max_abs_change": moved,
+        "val_recall20": recall,
+        "val_ndcg20": ndcg,
+        "int8_overlap_top20": overlap,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print("fusion: " + json.dumps(meas), flush=True)
     return launches
+
+
+@torch.no_grad()
+def phase_padding(dev, bundle):
+    """Row padding on the card: one set of LightGCN params through an
+    unpadded model and through models padded to each of ``PAD_MULTIPLES``,
+    on the ELL path and on the tile path."""
+    cfg = Config(embedding_dim=64, n_layers=3)
+
+    def graphs(model):
+        g = model.padded_graph(bundle.graph)
+        part = partition_tiles(g, min_fill=64)
+        return {
+            "ELL": to_device_graph_auto(g, device=dev),
+            "tile": block_spmm.TiledDeviceGraph(
+                base=to_device_graph(part.residual, device=dev),
+                tiles=block_spmm.to_device_tiles(part, device=dev)),
+        }
+
+    base = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                 device=dev)
+    params = base.init(torch.Generator().manual_seed(42))
+    want = {path: torch.cat(base(g)[:3]) for path, g in graphs(base).items()}
+    for m in PAD_MULTIPLES:
+        model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands,
+                                      cfg, device=dev)
+        model.set_row_multiple(m)
+        model.load_params(params)
+        pads = (model.num_users_pad, model.num_items_pad, model.num_brands_pad)
+        for path, g in graphs(model).items():
+            got = torch.cat(model(g)[:3])
+            diff = (got - want[path]).abs().max().item()
+            check(got.shape == want[path].shape and diff <= PADDING_ATOL,
+                  f"row multiple {m} (tables {pads}): padded {path} forward equals the "
+                  f"unpadded one (max abs diff {diff:.3g})")
 
 
 def main() -> int:
@@ -565,6 +890,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs on the card only",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -582,11 +908,22 @@ def main() -> int:
 
     quant_record = phase_kernel_check(dev)
     bundle, bundle_s = books_bundle()
-    quant_record["launches"] = phase_path(dev, bundle, bundle_s)[quant_record["name"]]
+    serve_launches = phase_path(dev, bundle, bundle_s)
     tile_record = phase_tile_kernel_check(dev, bundle)
-    tile_record["launches"] = phase_train(dev, bundle)[tile_record["name"]]
+    train_launches, step_ms = phase_train(dev, bundle)
+    x1_record, x2_record = phase_exp_tiles(dev)
+    fusion_launches = phase_fusion(dev, bundle, step_ms)
+    phase_padding(dev, bundle)
 
-    print(json.dumps({"kernels": [quant_record, tile_record]}), flush=True)
+    # launches of each main path, read right after it was driven
+    quant_record["launches"] = serve_launches["quantize_rows_int8"]
+    quant_record["launches_fusion_path"] = fusion_launches["quantize_rows_int8"]
+    tile_record["launches"] = train_launches["tile_matvec"]
+    tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]
+    print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),
+          flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

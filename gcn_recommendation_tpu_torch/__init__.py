@@ -1,9 +1,12 @@
 """gcn_recommendation_tpu_torch — the PyTorch/CUDA port of gcn_recommendation_tpu.
 
-The serving path of the JAX package (load a checkpoint, propagate once,
-masked top-k per request, f32 or int8 catalog) on an NVIDIA card, with
-the Pallas int8 quantizer as a hand-written CUDA kernel
-(``csrc/quant_int8.cu``).  Module names follow the JAX package so each
+Serving (load a checkpoint, propagate once, masked top-k per request, f32
+or int8 catalog) and training (BPR + Adam, evaluation, checkpoints and
+resume) of ``LightGCN`` and ``LightGCN_Fusion`` on an NVIDIA card, with the
+JAX package's Pallas kernels as hand-written CUDA kernels: the int8
+quantizer (``csrc/quant_int8.cu``) and the block-sparse tile product
+(``csrc/tile_spmm.cu``), which ``tools/exp_block_tiles.py`` also runs on
+dense, balanced tiles.  Module names follow the JAX package so each
 counterpart is easy to find; the port imports nothing from it.  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -4,6 +4,7 @@ Counterpart of ``gcn_recommendation_tpu/cli.py``'s modes of the same
 names, with the same output lines:
 
     python -m gcn_recommendation_tpu_torch train --processed_dir DIR \
+        [--model_name LightGCN_Fusion [--fusion_id_init]] \
         [--epochs 150] [--batch_size 2048] [--resume] \
         [--tile_spmm [--tile_min_fill 64] [--tile_dtype bfloat16]] [--device cpu]
     python -m gcn_recommendation_tpu_torch test --processed_dir DIR [--device cpu]
@@ -16,7 +17,9 @@ port's own (``utils/checkpoint.py``): ``train`` writes ``best.pt`` and
 ``last.pt`` under ``<checkpoint_dir>/<checkpoint_name>``, which ``test``
 and ``recommend`` read.  Params of the JAX package, as numpy arrays, are
 carried across with ``models/convert.py`` and saved with ``save_params``.
-Reading the parquet dataset needs pandas.
+``LightGCN_Fusion`` reads its content matrix from the dataset's
+``item_embeddings.npy`` in every mode and fails without it.  Reading the
+parquet dataset needs pandas.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train, test and serve LightGCN (PyTorch/CUDA port)."
+        description="Train, test and serve LightGCN / LightGCN_Fusion (PyTorch/CUDA port)."
     )
     sub = p.add_subparsers(dest="mode", required=True)
 
@@ -63,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Validate every N epochs (default 5, main.py:66).")
     tr.add_argument("--brand_loss", action="store_true",
                     help="Enable the brand preference loss.")
+    tr.add_argument("--fusion_id_init", action="store_true",
+                    help="LightGCN_Fusion: also initialize the trainable item "
+                         "ID table from the pretrained matrix.")
     tr.add_argument("--resume", action="store_true",
                     help="Resume from the rolling 'last' checkpoint.")
     tr.add_argument("--tile_spmm", action="store_true",
@@ -121,6 +127,7 @@ def _make_config(args):
         kwargs.update(
             epochs=args.epochs,
             brand_loss=args.brand_loss,
+            fusion_id_init=args.fusion_id_init,
             tile_spmm=args.tile_spmm,
             tile_min_fill=args.tile_min_fill,
             tile_dtype=args.tile_dtype,
@@ -132,24 +139,27 @@ def _make_config(args):
 
 
 def _load_everything(config, device):
-    """(bundle, model on ``device``), the model's item table initialized
-    from the pretrained matrix when the run asks for it."""
+    """(bundle, model on ``device``).  The pretrained item matrix is read
+    when the run asks for it or the model class says it needs one
+    (``needs_content``: the content matrix of ``LightGCN_Fusion``;
+    without the file the model's own ValueError stops the run)."""
     from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
     from gcn_recommendation_tpu_torch.models import get_model
 
     print(f"Using device: {device}")
+    model_cls = get_model(config.model_name)
     emb = None
-    if config.use_pretrained_emb:
+    if config.use_pretrained_emb or model_cls.needs_content:
         if os.path.exists(config.pretrained_emb_path):
             print(f"Loading pretrained item embeddings from {config.pretrained_emb_path}")
             emb = np.load(config.pretrained_emb_path)
-        else:
+        elif config.use_pretrained_emb:
             print(f"WARNING: --use_pretrained_emb was set, but file not found at "
                   f"{config.pretrained_emb_path}. Using random initialization.")
     bundle = load_preprocessed_data(
         config.data_dir, use_brand=config.use_brand, debug=config.debug
     )
-    model = get_model(config.model_name)(
+    model = model_cls(
         bundle.num_users, bundle.num_items, bundle.num_brands, config,
         pretrained_item_emb=emb, device=device,
     )

@@ -23,7 +23,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Graph", "build_normalized_adjacency", "normalize_sym", "bucket_by_degree"]
+__all__ = [
+    "Graph", "build_normalized_adjacency", "normalize_sym", "bucket_by_degree",
+    "pad_graph_nodes", "pad_ell_rows",
+]
 
 
 def default_width_schedule(deg: int) -> int:
@@ -294,3 +297,131 @@ def build_normalized_adjacency(
         dense_node_ids=dense_node_ids,
         dense_mat=dense_mat,
     )
+
+
+def pad_graph_nodes(
+    g: Graph,
+    num_users_pad: int,
+    num_items_pad: int,
+    num_brands_pad: int,
+    bucket_row_multiple: int = 1,
+    pad_multiple: int = 1024,
+) -> Graph:
+    """Remap the graph into a padded ``[users_pad | items_pad | brands_pad]``
+    node layout (pad nodes isolated, degree 0).
+
+    The graph half of row padding: the embedding tables are zero-padded to
+    a row multiple (``models/lightgcn.py::set_row_multiple``), and every
+    node id the adjacency carries must address the padded block.  The id
+    remap ``v -> v + (v >= U)*dU + (v >= U+I)*dI`` is strictly monotone,
+    so the dst-major edge order, and with it each node's summation order,
+    is preserved exactly; the ELL view is re-bucketed over the padded
+    space (same degrees, same width classes, same row and neighbor order).
+
+    ``bucket_row_multiple`` additionally zero-pads every ELL bucket's row
+    count (and the dense hub block) to a multiple (``pad_ell_rows``).
+    """
+    U, I, B = g.num_users, g.num_items, g.num_brands
+    if (num_users_pad, num_items_pad, num_brands_pad) == (U, I, B) and (
+        bucket_row_multiple <= 1
+    ):
+        return g
+    if not (num_users_pad >= U and num_items_pad >= I and num_brands_pad >= B):
+        raise ValueError(
+            f"padded sizes {(num_users_pad, num_items_pad, num_brands_pad)} "
+            f"below the logical sizes {(U, I, B)}"
+        )
+    du = np.int64(num_users_pad - U)
+    di = np.int64(num_items_pad - I)
+    n_pad = num_users_pad + num_items_pad + num_brands_pad
+
+    def remap(v):
+        v = np.asarray(v, np.int64)
+        return v + (v >= U) * du + (v >= U + I) * di
+
+    dst_r = remap(g.dst[: g.nnz])
+    src_r = remap(g.src[: g.nnz])
+    w = g.weight[: g.nnz].copy()
+
+    buckets, gather_idx, dense_node_ids, dense_mat = bucket_by_degree(
+        dst_r, src_r, w, n_pad
+    )
+    if bucket_row_multiple > 1:
+        buckets, gather_idx, dense_node_ids, dense_mat = pad_ell_rows(
+            buckets, gather_idx, dense_node_ids, dense_mat, n_pad,
+            bucket_row_multiple,
+        )
+
+    row_ptr = np.zeros(n_pad + 1, dtype=np.int64)
+    np.cumsum(np.bincount(dst_r, minlength=n_pad), out=row_ptr[1:])
+
+    nnz = g.nnz
+    nnz_pad = ((nnz + pad_multiple - 1) // pad_multiple) * pad_multiple
+    pad = nnz_pad - nnz
+    src_p = np.concatenate([src_r, np.zeros(pad, np.int64)]).astype(np.int32)
+    dst_p = np.concatenate([dst_r, np.full(pad, n_pad - 1, np.int64)]).astype(np.int32)
+    w_p = np.concatenate([w, np.zeros(pad, np.float32)])
+
+    return Graph(
+        num_users=num_users_pad,
+        num_items=num_items_pad,
+        num_brands=num_brands_pad,
+        nnz=nnz,
+        src=src_p,
+        dst=dst_p,
+        weight=w_p,
+        row_ptr=row_ptr,
+        buckets=buckets,
+        gather_idx=gather_idx,
+        dense_node_ids=dense_node_ids,
+        dense_mat=dense_mat,
+    )
+
+
+def pad_ell_rows(
+    buckets: List[EllBucket],
+    gather_idx: np.ndarray,
+    dense_node_ids: np.ndarray,
+    dense_mat: np.ndarray,
+    num_nodes: int,
+    multiple: int,
+):
+    """Zero-pad every ELL bucket's row count (and the dense hub block) to a
+    multiple, rebuilding ``gather_idx`` against the padded concat layout.
+
+    Pad rows gather ``emb[0] * 0`` (index 0, weight 0) and no node's
+    ``gather_idx`` points at them, so the propagation output is unchanged.
+    """
+    if multiple <= 1:
+        return buckets, gather_idx, dense_node_ids, dense_mat
+
+    def up(n):
+        return ((n + multiple - 1) // multiple) * multiple
+
+    new_buckets: List[EllBucket] = []
+    new_gather = np.full(num_nodes, -1, dtype=np.int64)
+    off = 0
+    for b in buckets:
+        nb = b.nbr_idx.shape[0]
+        nb_pad = up(nb)
+        idx = np.zeros((nb_pad, b.width), np.int32)
+        wts = np.zeros((nb_pad, b.width), np.float32)
+        idx[:nb] = b.nbr_idx
+        wts[:nb] = b.nbr_w
+        new_gather[b.node_ids] = off + np.arange(nb)
+        off += nb_pad
+        new_buckets.append(
+            EllBucket(node_ids=b.node_ids, nbr_idx=idx, nbr_w=wts, width=b.width)
+        )
+
+    h = len(dense_node_ids)
+    h_pad = up(h) if h else 0
+    if h:
+        dm = np.zeros((h_pad, dense_mat.shape[1]), np.float32)
+        dm[:h] = dense_mat
+        new_gather[dense_node_ids] = off + np.arange(h)
+    else:
+        dm = dense_mat
+    off += h_pad
+    new_gather[new_gather < 0] = off  # degree-0 / pad nodes -> zeros row
+    return new_buckets, new_gather.astype(np.int32), dense_node_ids, dm

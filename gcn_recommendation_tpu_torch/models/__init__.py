@@ -2,19 +2,16 @@
 main.py:42-50; unknown names raise ImportError like the reference."""
 
 from gcn_recommendation_tpu_torch.models.lightgcn import LightGCN
+from gcn_recommendation_tpu_torch.models.lightgcn_fusion import LightGCN_Fusion
 
-_REGISTRY = {"LightGCN": LightGCN}
-
-# Models of the JAX package that the port does not have yet.
-_NOT_PORTED = ("LightGCN_Fusion",)
+_REGISTRY = {
+    "LightGCN": LightGCN,
+    "LightGCN_Fusion": LightGCN_Fusion,
+}
 
 
 def get_model(model_name: str):
     """Look up a model class by its reference-compatible name."""
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported to PyTorch yet; known: {sorted(_REGISTRY)}"
-        )
     try:
         return _REGISTRY[model_name]
     except KeyError:
@@ -24,4 +21,9 @@ def get_model(model_name: str):
         ) from None
 
 
-__all__ = ["LightGCN", "get_model"]
+def register_model(name: str, cls) -> None:
+    """Register a custom model class under ``name``."""
+    _REGISTRY[name] = cls
+
+
+__all__ = ["LightGCN", "LightGCN_Fusion", "get_model", "register_model"]

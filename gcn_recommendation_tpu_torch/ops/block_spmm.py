@@ -14,12 +14,17 @@ PyTorch counterpart of ``gcn_recommendation_tpu/ops/block_spmm.py``.
   but its sum is, so the backward pass applies the same forward to the
   cotangent (as ``ops/spmm.py::propagate_ell``): the tile kernel runs
   once per layer forward and once per layer backward.
+* ``to_device_tiles`` ships a graph partition (``graph/tiles.py``);
+  ``tiles_from_arrays`` builds tiles for ``tile_matvec`` from raw arrays
+  at any number of tiles per step, with a row id per tile or per step
+  (the layouts of ``tools/exp_block_tiles.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,14 +39,16 @@ MAX_D = 128
 
 @dataclasses.dataclass
 class TileDeviceArrays:
-    """Device-resident tile partition."""
+    """Device-resident tiles.  ``tile_matvec`` needs the first four
+    arrays; the last two map the compact tile output back to nodes and
+    exist only for a graph partition (``to_device_tiles``)."""
 
     tile_a: torch.Tensor           # [T, 128, 128] float32 or bfloat16
     tile_col: torch.Tensor         # [T] int32 — source column blocks
     step_row: torch.Tensor         # [T // TB] int32, sorted
     row_step_ptr: torch.Tensor     # [R + 1] int32 — steps of each row block
-    tile_gather_idx: torch.Tensor  # [num_nodes] int64 into [R*128 + 1]
-    row_block_nodes: torch.Tensor  # [R, 128] int32 (-1 pad rows)
+    tile_gather_idx: Optional[torch.Tensor] = None  # [num_nodes] int64 into [R*128 + 1]
+    row_block_nodes: Optional[torch.Tensor] = None  # [R, 128] int32 (-1 pad rows)
 
     @property
     def num_tiles(self) -> int:
@@ -53,7 +60,52 @@ class TileDeviceArrays:
 
     @property
     def n_row_blocks(self) -> int:
-        return int(self.row_block_nodes.shape[0])
+        return int(self.row_step_ptr.shape[0]) - 1
+
+
+def _row_step_ptr(step_row: np.ndarray, n_row_blocks: int) -> np.ndarray:
+    """Row block r owns steps ``ptr[r] .. ptr[r+1]`` of the sorted ``step_row``."""
+    return np.searchsorted(step_row, np.arange(n_row_blocks + 1), side="left").astype(np.int32)
+
+
+def tiles_from_arrays(
+    tile_a: np.ndarray,
+    tile_col: np.ndarray,
+    rows: np.ndarray,
+    tiles_per_step: int,
+    n_row_blocks: int,
+    tile_dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> TileDeviceArrays:
+    """Tiles for ``tile_matvec`` from raw arrays: ``tile_a`` [T, 128, 128],
+    ``tile_col`` [T] column blocks, and ``rows``, the sorted output row
+    block of every tile ([T]) or of every step ([T // tiles_per_step]).
+    There is no graph behind such tiles, so the node maps stay unset."""
+    dev = resolve_device(device)
+    t, tb = int(tile_a.shape[0]), int(tiles_per_step)
+    if tile_a.shape[1:] != (TILE, TILE) or tile_col.shape != (t,):
+        raise ValueError(
+            f"tile_a {tile_a.shape} / tile_col {tile_col.shape}: want [T, 128, 128] / [T]"
+        )
+    if tb < 1 or t % tb:
+        raise ValueError(f"{t} tiles do not split into steps of {tb}")
+    rows = np.asarray(rows)
+    if rows.shape == (t,) and tb > 1:
+        per_step = rows.reshape(t // tb, tb)
+        if (per_step != per_step[:, :1]).any():
+            raise ValueError("the tiles of one step belong to different row blocks")
+        rows = per_step[:, 0]
+    if rows.shape != (t // tb,):
+        raise ValueError(f"rows {rows.shape}: want one id per tile [{t}] or per step [{t // tb}]")
+    if len(rows) and ((np.diff(rows) < 0).any() or rows[0] < 0 or rows[-1] >= n_row_blocks):
+        raise ValueError(f"row ids must be sorted and in [0, {n_row_blocks})")
+    step_row = rows.astype(np.int32)
+    return TileDeviceArrays(
+        tile_a=torch.from_numpy(np.ascontiguousarray(tile_a)).to(device=dev, dtype=tile_dtype),
+        tile_col=torch.from_numpy(tile_col.astype(np.int32)).to(dev),
+        step_row=torch.from_numpy(step_row).to(dev),
+        row_step_ptr=torch.from_numpy(_row_step_ptr(step_row, n_row_blocks)).to(dev),
+    )
 
 
 def to_device_tiles(
@@ -63,9 +115,7 @@ def to_device_tiles(
     is derived here from the sorted ``step_row``: row block r owns steps
     ``row_step_ptr[r] .. row_step_ptr[r+1]``."""
     dev = resolve_device(device)
-    row_step_ptr = np.searchsorted(
-        part.step_row, np.arange(part.n_row_blocks + 1), side="left"
-    ).astype(np.int32)
+    row_step_ptr = _row_step_ptr(part.step_row, part.n_row_blocks)
     return TileDeviceArrays(
         tile_a=torch.from_numpy(part.tile_a).to(device=dev, dtype=tile_dtype),
         tile_col=torch.from_numpy(part.tile_col).to(dev),
@@ -154,6 +204,8 @@ tile_matvec.launches = 0
 
 
 def _ell_tiles_matvec(emb: torch.Tensor, graph: DeviceGraph, tiles: TileDeviceArrays):
+    if tiles.tile_gather_idx is None:
+        raise ValueError("these tiles carry no node map: they are not a graph partition")
     base = _ell_matvec(
         emb, graph.bucket_nbr_idx, graph.bucket_nbr_w, graph.gather_idx, graph.dense_mat
     )

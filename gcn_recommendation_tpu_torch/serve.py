@@ -71,11 +71,14 @@ class Retriever:
     @classmethod
     @torch.no_grad()
     def from_params(cls, model, params, bundle: DataBundle, quantize: bool = False):
-        """Load ``params`` into ``model``, propagate once on the model's
-        device, and build a retriever from the final embeddings."""
+        """Load ``params`` (logical or padded shapes) into ``model``,
+        propagate once on the model's device (over the padded node space
+        when the model is row-padded), and build a retriever from the
+        final embeddings, which have logical rows."""
         model.load_params(params)
         graph = to_device_graph_auto(
-            bundle.graph, compute_dtype=model.compute_dtype, device=model.device
+            model.padded_graph(bundle.graph), compute_dtype=model.compute_dtype,
+            device=model.device,
         )
         fu, fi, *_ = model(graph)
         return cls(fu, fi, bundle, quantize=quantize)

@@ -12,7 +12,13 @@ PyTorch counterpart of ``gcn_recommendation_tpu/train/trainer.py``
   every step, as under optax;
 * negatives pre-sampled for the whole epoch up to
   ``epoch_presample_max_examples``, in-step above it (same distribution);
-* debug mode caps an epoch at 10 batches;
+* debug mode caps an epoch at 10 batches and, for the plain ``LightGCN``,
+  runs the reference's self-checks (``models.lightgcn.debug_diagnostics``);
+* the optimizer holds the model's trainable parameters only (the content
+  buffer of ``LightGCN_Fusion`` is not one);
+* a row-padded model (``set_row_multiple``) trains over the padded node
+  space (``model.padded_graph``), on the ELL path and under ``tile_spmm``;
+  checkpoints store logical shapes whatever the row multiple;
 * validation every ``val_interval`` epochs, a ``best`` checkpoint on a
   new best recall and a rolling ``last`` one; ``fit(resume=True)``
   continues from ``last``.
@@ -40,6 +46,7 @@ from gcn_recommendation_tpu_torch.data.sampler import (
     positive_keys,
     sample_negatives,
 )
+from gcn_recommendation_tpu_torch.models.lightgcn import debug_diagnostics
 from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
 from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches, evaluate_batches
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
@@ -83,7 +90,7 @@ class Trainer:
     def _device_graph(self):
         """The ELL device graph, or the tile partition's TiledDeviceGraph
         when ``config.tile_spmm`` is set and some tile qualifies."""
-        g = self.bundle.graph
+        g = self.model.padded_graph(self.bundle.graph)
         cdtype = getattr(torch, self.config.compute_dtype)
         if self.config.tile_spmm:
             from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
@@ -113,7 +120,8 @@ class Trainer:
 
     def _make_optimizer(self) -> torch.optim.Adam:
         return torch.optim.Adam(
-            self.model.parameters(), lr=self.config.learning_rate,
+            [getattr(self.model, k) for k in self.model.trainable_keys],
+            lr=self.config.learning_rate,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
         )
 
@@ -186,9 +194,23 @@ class Trainer:
             )
         return evaluate_batches(fu, fi, self._eval_batches, self.config.top_k)
 
-    def _save(self, ckpt_dir: str, tag: str, epoch: int, best_recall: float) -> None:
+    def _map_optimizer_tables(self, state_dict, fn):
+        """``fn`` (the model's ``pad_state_tree`` or ``unpad_state_tree``)
+        over the Adam moments of ``state_dict``, whose entries follow the
+        order of ``model.trainable_keys``."""
+        keys = self.model.trainable_keys
+        state = {
+            i: {name: fn({keys[i]: v})[keys[i]] for name, v in entry.items()}
+            for i, entry in state_dict["state"].items()
+        }
+        return {"state": state, "param_groups": state_dict["param_groups"]}
+
+    def save_checkpoint(self, ckpt_dir: str, tag: str, epoch: int, best_recall: float) -> None:
+        """Write a checkpoint at logical shapes (pad rows sliced off)."""
+        unpad = self.model.unpad_state_tree
         ckpt.save_state(
-            ckpt_dir, tag, self.model.params(), self.optimizer.state_dict(),
+            ckpt_dir, tag, unpad(self.model.params()),
+            self._map_optimizer_tables(self.optimizer.state_dict(), unpad),
             epoch, best_recall, self.generator.get_state(),
         )
 
@@ -198,12 +220,17 @@ class Trainer:
         cfg = self.config
         self.init_state()
         start_epoch, best_recall = 1, 0.0
+        if cfg.debug and self.model.has_debug_diagnostics:
+            # the reference's debug-mode self-checks (models/lightgcn.py:49-78)
+            debug_diagnostics(self.model, self.model.params(), self.bundle.graph)
         ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.checkpoint_name())
         if resume:
             state = ckpt.load_state(ckpt_dir, "last")
             if state is not None:
                 self.model.load_params(state["params"])
-                self.optimizer.load_state_dict(state["optimizer"])
+                self.optimizer.load_state_dict(
+                    self._map_optimizer_tables(state["optimizer"], self.model.pad_state_tree)
+                )
                 self.generator.set_state(state["generator"])
                 start_epoch = state["epoch"] + 1
                 best_recall = state["best_recall"]
@@ -233,9 +260,9 @@ class Trainer:
                     self.logger.log_epoch_metrics(epoch, avg_loss, recall, ndcg)
                 if recall > best_recall:
                     best_recall = recall
-                    self._save(ckpt_dir, "best", epoch, best_recall)
+                    self.save_checkpoint(ckpt_dir, "best", epoch, best_recall)
                     print("New best model saved...")
-                self._save(ckpt_dir, "last", epoch, best_recall)
+                self.save_checkpoint(ckpt_dir, "last", epoch, best_recall)
 
         if self.logger is not None:
             self.logger.save(total_epochs=cfg.epochs)

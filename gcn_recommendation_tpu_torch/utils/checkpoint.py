@@ -4,12 +4,15 @@ The JAX package writes Orbax checkpoints that cannot be read without
 JAX.  The port writes ``<dir>/<tag>.pt``, with tags ``best`` and ``last``
 as the JAX trainer uses them:
 
-* ``save_params`` — the params dict alone: ``user_embedding`` /
-  ``item_embedding`` / ``brand_embedding`` float tensors at logical
-  shapes, on the CPU;
+* ``save_params`` — the params dict alone: one float tensor per key of
+  the model's ``param_keys``, at logical shapes, on the CPU;
 * ``save_state`` — the full training state: ``{"params", "optimizer"
-  (``torch.optim.Adam.state_dict()``), "epoch", "best_recall",
-  "generator" (the sampling generator's state)}``.
+  (``torch.optim.Adam.state_dict()`` over the model's trainable keys, at
+  logical shapes), "epoch", "best_recall", "generator" (the sampling
+  generator's state)}``.
+
+Nothing here knows a model: the keys are whatever the caller's dict
+holds, and the model checks them when it loads (``load_params``).
 
 ``load_params`` reads either kind, so serving reads what training
 wrote.  Every file is written to a temporary name and then moved into

@@ -29,7 +29,9 @@ def test_port_lists_its_modules():
     for m in ("ops.quant", "ops.spmm", "ops.topk", "serve", "cli", "kernels._build",
               "models.lightgcn", "models.convert", "utils.checkpoint", "core.device",
               "ops.block_spmm", "graph.tiles", "data.sampler", "train.loss",
-              "train.evaluate", "train.trainer", "utils.logging"):
+              "train.evaluate", "train.trainer", "utils.logging",
+              "models.lightgcn_fusion", "tools", "tools.exp_block_tiles",
+              "data.synthetic", "graph.build"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -71,8 +73,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
     from gcn_recommendation_tpu_torch.models import get_model
     from gcn_recommendation_tpu_torch.models.convert import params_from_jax
-    from gcn_recommendation_tpu_torch.ops.block_spmm import to_device_tiles
+    from gcn_recommendation_tpu_torch.ops.block_spmm import tiles_from_arrays, to_device_tiles
     from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
+    from gcn_recommendation_tpu_torch.tools import exp_block_tiles
     from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches
     from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
 
@@ -80,11 +83,21 @@ def test_entry_points_raise_without_cuda(tmp_path):
     calls = [
         lambda: get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, Config()),
         lambda: to_device_graph_auto(b.graph),
-        lambda: params_from_jax({k: np.zeros((2, 2)) for k in
-                                 ("user_embedding", "item_embedding", "brand_embedding")}),
+        lambda: params_from_jax(
+            {k: np.zeros((2, 2)) for k in
+             ("user_embedding", "item_embedding", "brand_embedding")},
+            get_model("LightGCN")(2, 2, 2, Config(embedding_dim=2), device="cpu")),
         lambda: load_params(str(tmp_path)),
         lambda: to_device_tiles(partition_tiles(b.graph, min_fill=1)),
         lambda: build_eval_batches(b.val, b.train, b.num_users, b.num_items),
+        lambda: get_model("LightGCN_Fusion")(
+            b.num_users, b.num_items, b.num_brands, Config(),
+            pretrained_item_emb=np.zeros((b.num_items, 8), np.float32)),
+        lambda: tiles_from_arrays(np.zeros((1, 128, 128), np.float32), np.zeros(1, np.int32),
+                                  np.zeros(1, np.int32), 1, 1),
+        lambda: exp_block_tiles.device_tiles(exp_block_tiles.make_layout(0, 2, 4, 1, 1)),
+        lambda: exp_block_tiles.run_case(exp_block_tiles.make_layout(0, 2, 4, 1, 1), 1,
+                                         torch.float32),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -96,8 +109,9 @@ def test_cli_without_device_raises_without_cuda(tmp_path):
     from gcn_recommendation_tpu_torch import cli
 
     for mode in ("recommend", "train", "test"):
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            cli.main([mode, "--processed_dir", str(tmp_path)])
+        for extra in ([], ["--model_name", "LightGCN_Fusion"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                cli.main([mode, "--processed_dir", str(tmp_path), *extra])
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -57,7 +57,7 @@ def setup():
         b.num_users, b.num_items, b.num_brands, Config(embedding_dim=16, n_layers=2),
         device="cpu",
     )
-    params = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    params = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, m, device="cpu")
     return b, bj, jm, jp, m, params
 
 

@@ -41,7 +41,9 @@ from gcn_recommendation_tpu_torch.models.convert import (
     load_adam_state_from_jax,
     params_from_jax,
 )
-from gcn_recommendation_tpu_torch.models.lightgcn import PARAM_KEYS
+from gcn_recommendation_tpu_torch.models.lightgcn import LightGCN
+
+PARAM_KEYS = LightGCN.param_keys
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
@@ -173,7 +175,7 @@ def _port_trainer(bundles, tile, tmp, params):
     b, _ = bundles
     cfg, _ = _configs(tile, tmp)
     m = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, cfg, device="cpu")
-    m.load_params(params_from_jax(params, device="cpu"))
+    m.load_params(params_from_jax(params, m, device="cpu"))
     tr = Trainer(cfg, m, b)
     assert type(tr.graph).__name__ == ("TiledDeviceGraph" if tile else "DeviceGraph")
     return tr
