@@ -13,8 +13,9 @@ fails:
    (one ``nvcc`` per source, all started together);
 3. kernel check: ``quantize_rows_int8`` on the card against its plain
    PyTorch version at the catalog shape [20000, 64] and a ragged
-   [1000, 48]; q and scales must be bit-equal.  Kernel and plain times
-   are CUDA-event medians over 5 windows of 20 back-to-back calls;
+   [1000, 48]; q and scales must be bit-equal.  Times are CUDA-event
+   medians over 5 windows: of 20 back-to-back eager calls (plain version,
+   ``call_ms``) or of replays of a CUDA graph of 20 launches (``ms``);
 4. the serving path: the books-shaped bench bundle (72,000 nodes, ~3.03M
    adjacency nonzeros), LightGCN dim 64, 3 layers, random weights from a
    seed; ``Retriever.from_params`` with the f32 and the int8 catalog,
@@ -24,23 +25,32 @@ fails:
    micro-batched equal per-request results, the ELL propagation equal to
    the ``propagate_coo`` oracle within 1e-5, int8 top-20 overlapping f32
    top-20 by >= 0.9, and the kernel launched during the int8 load;
-5. kernel check: ``tile_matvec`` (``csrc/tile_spmm.cu``) against its plain
-   version on the same bundle's tile partition (min_fill 64, 8 tiles per
-   step, d = 64) with f32 tiles (max abs diff <= 1e-5) and bf16 tiles
-   (<= 1e-5 * max(1, max|plain|)), and on a ragged partition (N not a multiple of
-   128, d = 48); the ``propagate_ell_tiles`` gradient of ``sum(out**2)``
-   against the plain ELL path's within 1e-4; times beside the bound and
-   beside ``torch.sparse.mm`` of the tile edges as a CSR matrix;
-6. the training path: a ``Trainer`` with ``tile_spmm=True`` and an ELL
-   twin from the same params (dim 64, 3 layers, batch 2048) take the same
-   20 steps on the same batches and negatives.  Checked: finite losses,
-   the two paths' per-step losses within rtol 2e-3, the loss falling,
-   ``tile_matvec`` launched exactly 6 times a step plus 3 for the
-   validation forward, Recall@20 / NDCG@20 in [0, 1], and the ``best``
-   checkpoint serving a 64-user request through ``Retriever``;
-7. the tile experiment (``tools/exp_block_tiles.py``: the kernel of phase
-   5 on dense, balanced tiles, 16 tiles in each of 384 row blocks, 564
-   column blocks, d = 64, seed 0): kernel against the experiment's plain
+5. kernel check: ``tile_matvec`` in both layouts, compressed
+   (``csrc/tile_gather_spmm.cu``) and dense (``csrc/tile_spmm.cu``), against
+   the plain version on the same bundle's tile partition (min_fill 64, 8
+   tiles per step, d = 64) with f32 tiles (max abs diff <= 1e-5) and bf16
+   tiles (<= 1e-5 * max(1, max|plain|)), and on a ragged partition (N not
+   a multiple of 128, d = 48); ``layout="auto"`` must pick compressed
+   there; the ``propagate_ell_tiles`` gradient of ``sum(out**2)`` on the
+   auto layout against the plain ELL path's within 1e-4; times of both
+   layouts beside their bounds and beside ``torch.sparse.mm`` of the tile
+   edges as a CSR matrix.  A kernel's ``ms`` is its time on the card, from
+   replaying a CUDA graph of 20 launches; ``call_ms`` is the time of one
+   call in a loop of eager calls, which the host bounds when the kernel is
+   short;
+6. the training path: a ``Trainer`` with ``tile_spmm=True`` (auto layout:
+   the compressed kernel) and an ELL twin from the same params (dim 64, 3
+   layers, batch 2048) take the same 20 steps on the same batches and
+   negatives.  Checked: finite losses, the two paths' per-step losses
+   within rtol 2e-3, the loss falling, ``tile_matvec`` launched exactly 6
+   times a step plus 3 for the validation forward, Recall@20 / NDCG@20 in
+   [0, 1], and the ``best`` checkpoint serving a 64-user request through
+   ``Retriever``.  Then, measurement only and time-boxed: ms per step of
+   the tile trainer at ``tile_min_fill`` 64, 32 and 16;
+7. the tile experiment (``tools/exp_block_tiles.py``: the dense kernel of
+   phase 5 on dense, balanced tiles, 16 tiles in each of 384 row blocks, 564
+   column blocks, d = 64, seed 0; ``layout="auto"`` must pick dense there):
+   kernel against the experiment's plain
    formula at one tile per step with f32 and with bf16 tiles and at 8
    tiles per step with f32 (all <= 1e-5 * max(1, max|plain|); the bf16
    kernel is also held against the product with the window left in f32,
@@ -48,7 +58,10 @@ fails:
    8-tile result,
    the 30-application chain of each, launches counted from 0 around the
    experiment's own calls (1 + 2 * 30 a case), times beside the bound and
-   beside a ``torch.sparse_bsr_tensor`` product of the same tiles;
+   beside a ``torch.sparse_bsr_tensor`` product of the same tiles; then a
+   fill scan: the same geometry cut to 1,536 tiles with values kept at
+   random positions to fills of 0.35% to 100%, both kernels at each fill
+   against the plain version, and the fill at which their times cross;
 8. the ``LightGCN_Fusion`` path on the same bundle with a [20000, 64]
    content matrix from a seed: a tile ``Trainer`` and its ELL twin take
    the same 20 steps.  Checked: finite, falling losses, the two paths
@@ -69,6 +82,7 @@ no CUDA card is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -116,6 +130,13 @@ TRAIN_STEPS = 20
 TRAIN_LOSS_RTOL = 2e-3        # tile vs ELL per-step loss (tests/test_tile_spmm.py)
 PADDING_ATOL = 1e-6           # padded vs unpadded forward: same sums, tables of |x| <= 0.011
 PAD_MULTIPLES = (8, 48)       # 8 pads only ELL bucket rows here; 48 pads every table too
+SCAN_FILLS = (0.0035, 0.015, 0.06, 0.25, 1.0)   # the fill scan of the two tile kernels
+SCAN_MIN_FILLS = (64, 32, 16)                   # tile_min_fill scan of the tile trainer
+MIN_FILL_SCAN_BUDGET_S = 40.0
+KERNEL_SOURCE = {
+    "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
+    "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
+}
 
 
 def _cuda_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
@@ -135,6 +156,23 @@ def _cuda_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """Time of one ``fn()`` on the card in ms, without the host's share:
+    ``reps`` calls captured into one CUDA graph, the graph replayed and
+    timed with ``_cuda_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture: builds, lazy initialisation
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _cuda_ms(graph.replay, reps=5) / reps
 
 
 def _host_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -176,7 +214,8 @@ def phase_kernel_check(dev):
             f"(max abs diff {err})",
         )
         if record is None:  # the catalog shape of the path
-            ms = _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed))
+            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed))
+            call_ms = _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed))
             plain_ms = _cuda_ms(lambda: quant._quantize_rows_int8_reference(x, seed=seed))
             nbytes = 4 * n * d + n * d + 4 * n
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -189,7 +228,8 @@ def phase_kernel_check(dev):
                 "shape": [n, d],
                 "max_abs_err": err,
                 "max_abs_diff_vs_plain": err,
-                "ms": ms,
+                "ms": ms,            # on the card (CUDA graph replay)
+                "call_ms": call_ms,  # one eager call in a loop: host-bound when short
                 "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -322,21 +362,27 @@ def phase_path(dev, bundle, bundle_s):
 
 
 def _tile_bound_ms(tiles, n: int, d: int):
-    """Least time for one ``tile_matvec`` on the card: each input read
-    once (tile values, column ids, step pointers, the [n, d] embedding),
-    the output written once, against the operations this data needs (two
-    per nonzero tile value and column, at the float32 rate outside the
-    tensor cores for f32 tiles and at the bf16 tensor-core rate for bf16).
-    Also returns the time of the dense tile products alone (the work the
-    TPU kernel's formulation does)."""
-    a = tiles.tile_a
-    nbytes = (a.numel() * a.element_size() + 4 * tiles.num_tiles
-              + 4 * (tiles.n_row_blocks + 1) + 4 * n * d
-              + 4 * tiles.n_row_blocks * TILE * d)
+    """Least time for one ``tile_matvec`` on the card: each input that the
+    tiles' layout holds read once (dense: tile values, column ids, step
+    pointers; compressed: edge sources, weights, row pointers; both: the
+    [n, d] embedding), the output written once, against the operations this
+    data needs (two per nonzero tile value and column, at the bf16
+    tensor-core rate for dense bf16 tiles, else at the float32 rate outside
+    the tensor cores).  Also returns the time of the dense tile products
+    alone (the work the TPU kernel's formulation does)."""
+    a = tiles.values
+    if tiles.layout == "dense":
+        nbytes = a.numel() * a.element_size() + 4 * tiles.num_tiles + 4 * (tiles.n_row_blocks + 1)
+        nonzeros = int((a != 0).sum())
+    else:
+        nbytes = a.numel() * (a.element_size() + 4) + 4 * tiles.edge_row_ptr.numel()
+        nonzeros = a.numel()
+    nbytes += 4 * n * d + 4 * tiles.n_row_blocks * TILE * d
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # bf16 tiles meet a bf16-rounded window: exact products on the tensor cores
-    rate = BF16_OPS_PER_S if a.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    ops_ms = 2 * int((a != 0).sum()) * d / rate * 1e3
+    # dense bf16 tiles meet a bf16-rounded window: exact products on the tensor cores
+    on_tensor_cores = tiles.layout == "dense" and a.dtype == torch.bfloat16
+    rate = BF16_OPS_PER_S if on_tensor_cores else FP32_OPS_PER_S
+    ops_ms = 2 * nonzeros * d / rate * 1e3
     dense_ms = 2 * tiles.num_tiles * TILE * TILE * d / rate * 1e3
     bound = max(bytes_ms, ops_ms)
     return bound, "bytes" if bytes_ms >= ops_ms else "operations", dense_ms
@@ -354,33 +400,54 @@ def _tile_csr(part, n: int, dev):
     return coo.coalesce().to(dev).to_sparse_csr()
 
 
-def _check_tile_kernel(part, n: int, d: int, dev, what: str):
-    """Kernel vs plain on one partition, f32 and bf16 tiles; returns the
-    f32 (tiles, emb, max abs diff) and the bf16 tiles."""
+def _check_tiles(tiles, emb, what: str, scaled: bool = False) -> float:
+    """One kernel against the plain version of its layout on ``tiles``;
+    returns the max abs diff.  f32 tiles are held to 1e-5 absolute unless
+    ``scaled`` (sums that pass 1: the experiment's limit), bf16 tiles to
+    1e-5 * max(1, max|plain|)."""
+    k = block_spmm.tile_matvec(emb, tiles)
+    p = block_spmm._tile_matvec_reference(emb, tiles)
+    torch.cuda.synchronize()
+    err = (k - p).abs().max().item()
+    scale = p.abs().max().item()
+    name = f"tile_matvec {tiles.layout} {str(tiles.values.dtype).replace('torch.', '')}"
+    if tiles.values.dtype == torch.float32 and not scaled:
+        check(err <= TILE_F32_ATOL, f"{name} kernel matches plain on {what} (max abs diff {err:.3g})")
+    else:
+        check(err <= TILE_BF16_RTOL * max(1.0, scale),
+              f"{name} kernel matches plain on {what} "
+              f"(max abs diff {err:.3g}, max|plain| {scale:.3g})")
+    return err
+
+
+def _check_tile_kernels(part, n: int, d: int, dev, what: str):
+    """Both kernels vs plain on one partition, f32 and bf16 tiles; returns
+    {(layout, dtype): (tiles, max abs diff)} and the embedding."""
     gen = torch.Generator(device=dev).manual_seed(d)
     emb = torch.randn((n, d), generator=gen, device=dev)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tiles = block_spmm.to_device_tiles(part, tile_dtype=dtype, device=dev)
-        k = block_spmm.tile_matvec(emb, tiles)
-        p = block_spmm._tile_matvec_reference(emb, tiles)
-        torch.cuda.synchronize()
-        err = (k - p).abs().max().item()
-        scale = p.abs().max().item()
-        if dtype == torch.float32:
-            check(err <= TILE_F32_ATOL,
-                  f"tile_matvec f32 kernel matches plain on {what} (max abs diff {err:.3g})")
-        else:
-            check(err <= TILE_BF16_RTOL * max(1.0, scale),
-                  f"tile_matvec bf16 kernel matches plain on {what} "
-                  f"(max abs diff {err:.3g}, max|plain| {scale:.3g})")
-        out[dtype] = (tiles, emb, err)
-    return out
+    for layout in block_spmm.LAYOUTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tiles = block_spmm.to_device_tiles(part, tile_dtype=dtype, device=dev, layout=layout)
+            check(tiles.layout == layout and (tiles.tile_a is None) == (layout == "compressed"),
+                  f"{layout} tiles of {what} hold {'no ' if layout == 'compressed' else ''}tile_a")
+            out[(layout, dtype)] = (tiles, _check_tiles(tiles, emb, what))
+    return out, emb
+
+
+def _tiles_nbytes(tiles) -> int:
+    """Device bytes of the arrays ``tile_matvec`` reads from ``tiles``."""
+    arrays = [tiles.tile_a, tiles.edge_row_ptr, tiles.edge_src, tiles.edge_w]
+    if tiles.plan is not None:
+        p = tiles.plan
+        arrays += [p.list_tile, p.list_col, p.segments, p.block_seg_ptr, p.reduce_rows,
+                   p.reduce_ptr]
+    return sum(a.numel() * a.element_size() for a in arrays if a is not None)
 
 
 def phase_tile_kernel_check(dev, bundle):
-    """The tile kernel against its plain version, its gradient against
-    the ELL path, and its times beside the bound and the library call."""
+    """Both tile kernels against the plain version, the gradient against
+    the ELL path, and the times beside the bounds and the library call."""
     g = bundle.graph
     n, d = g.num_nodes, 64
     t0 = time.perf_counter()
@@ -391,6 +458,7 @@ def phase_tile_kernel_check(dev, bundle):
     per_rb = np.bincount(part.step_row[np.arange(part.num_tiles) // part.tiles_per_step][real],
                          minlength=part.n_row_blocks)
     fill = float((part.tile_a != 0).sum()) / part.tile_a.size
+    edges_per_row = np.diff(part.edge_row_ptr)
     stats = {
         "partition_s": partition_s, "tiles": part.num_tiles, "real_tiles": int(real.sum()),
         "steps": len(part.step_row), "row_blocks": part.n_row_blocks,
@@ -398,31 +466,42 @@ def phase_tile_kernel_check(dev, bundle):
         "tile_bytes_f32": part.tile_a.nbytes, "tile_fill": fill,
         "tiles_per_row_block_max": int(per_rb.max()),
         "tiles_per_row_block_mean": float(per_rb.mean()),
+        "edges_per_compact_row_max": int(edges_per_row.max()),
+        "edges_per_compact_row_mean": float(edges_per_row.mean()),
         "residual_buckets": len(part.residual.buckets),
     }
     print("partition: " + json.dumps(stats), flush=True)
 
+    upload = {}
+    for layout in ("auto", "dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shipped = block_spmm.to_device_tiles(part, device=dev, layout=layout)
+        torch.cuda.synchronize()
+        upload[shipped.layout] = (time.perf_counter() - t0, _tiles_nbytes(shipped))
+        if layout == "auto":
+            check(shipped.layout == "compressed" and shipped.tile_a is None,
+                  f"layout auto picks compressed on the books partition (fill {fill:.4g} < "
+                  f"{block_spmm.AUTO_DENSE_MIN_FILL})")
+        del shipped
     t0 = time.perf_counter()
-    block_spmm.to_device_tiles(part, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     to_device_graph(part.residual, device=dev)
     torch.cuda.synchronize()
-    print(f"upload: tiles {t1 - t0:.3f} s, residual graph {time.perf_counter() - t1:.3f} s",
-          flush=True)
+    print("upload: tiles " + ", ".join(
+        f"{k} {s:.3f} s ({b / 1e6:.1f} MB on the card)" for k, (s, b) in upload.items())
+        + f", residual graph {time.perf_counter() - t0:.3f} s", flush=True)
 
-    checked = _check_tile_kernel(part, n, d, dev, f"the books partition (d={d})")
-    tiles, emb, err = checked[torch.float32]
-    tiles_bf16 = checked[torch.bfloat16][0]
+    checked, emb = _check_tile_kernels(part, n, d, dev, f"the books partition (d={d})")
 
     small = synthetic_bundle(1000, 700, 30, mean_degree=20.0, core=4, seed=1).graph
     small_part = partition_tiles(small, min_fill=16, tiles_per_step=8)
     check(small.num_nodes % TILE != 0 and small_part is not None,
           f"ragged partition: {small.num_nodes} nodes")
-    _check_tile_kernel(small_part, small.num_nodes, 48, dev,
-                       f"a ragged partition ({small.num_nodes} nodes, d=48)")
+    _check_tile_kernels(small_part, small.num_nodes, 48, dev,
+                        f"a ragged partition ({small.num_nodes} nodes, d=48)")
 
-    # gradient of sum(out**2): tile partition vs the plain ELL path
+    # gradient of sum(out**2): tile partition (auto layout) vs the plain ELL path
+    tiles = block_spmm.to_device_tiles(part, device=dev)
     res = to_device_graph(part.residual, device=dev)
     full = to_device_graph(g, device=dev)
     x = emb.clone().requires_grad_(True)
@@ -433,7 +512,8 @@ def phase_tile_kernel_check(dev, bundle):
         x)
     gerr = (g_tile - g_ell).abs().max().item()
     check(gerr <= TILE_GRAD_ATOL,
-          f"propagate_ell_tiles gradient matches the ELL gradient (max abs diff {gerr:.3g})")
+          f"propagate_ell_tiles gradient on the {tiles.layout} layout matches the ELL gradient "
+          f"(max abs diff {gerr:.3g})")
 
     csr = _tile_csr(part, n, dev)
     lib = torch.sparse.mm(csr, emb)
@@ -442,26 +522,57 @@ def phase_tile_kernel_check(dev, bundle):
     lerr = (lib - ker).abs().max().item()
     check(lerr <= TILE_F32_ATOL, f"torch.sparse.mm of the tile edges equals the kernel "
                                  f"(max abs diff {lerr:.3g})")
-    ms = _cuda_ms(lambda: block_spmm.tile_matvec(emb, tiles))
-    bf16_ms = _cuda_ms(lambda: block_spmm.tile_matvec(emb, tiles_bf16))
-    plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, tiles))
-    library_ms = _cuda_ms(lambda: torch.sparse.mm(csr, emb))
-    bound_ms, bound_by, dense_ms = _tile_bound_ms(tiles, n, d)
+
+    def times(layout, dtype):
+        t = checked[(layout, dtype)][0]
+        return (_device_ms(lambda: block_spmm.tile_matvec(emb, t)),
+                _cuda_ms(lambda: block_spmm.tile_matvec(emb, t)))
+
+    main = checked[("compressed", torch.float32)]
+    ms, call_ms = times("compressed", torch.float32)
+    bf16_ms, bf16_call_ms = times("compressed", torch.bfloat16)
+    dense_ms, dense_call_ms = times("dense", torch.float32)
+    dense_bf16_ms, _ = times("dense", torch.bfloat16)
+    dense_tiles = checked[("dense", torch.float32)][0]
+    plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, main[0]))
+    dense_plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, dense_tiles))
+    library_ms = _device_ms(lambda: torch.sparse.mm(csr, emb))
+    library_call_ms = _cuda_ms(lambda: torch.sparse.mm(csr, emb))
+    bound_ms, bound_by, dense_products_ms = _tile_bound_ms(main[0], n, d)
+    dense_bound_ms, dense_bound_by, _ = _tile_bound_ms(dense_tiles, n, d)
+    bf16_bound_ms, _, _ = _tile_bound_ms(checked[("compressed", torch.bfloat16)][0], n, d)
+    dense_bf16_bound_ms, _, _ = _tile_bound_ms(checked[("dense", torch.bfloat16)][0], n, d)
     return {
         "name": "tile_matvec",
         "route": "cuda",
-        "source": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
+        "layout": "compressed",
+        "source": KERNEL_SOURCE["compressed"],
         "replaces": "gcn_recommendation_tpu/ops/block_spmm.py:79",
         "shape": [part.num_tiles, TILE, TILE, d],
-        "max_abs_err": err,
-        "max_abs_diff_vs_plain": err,
-        "ms": ms,
+        "edges": part.covered_edges,
+        "max_abs_err": main[1],
+        "max_abs_diff_vs_plain": main[1],
+        "ms": ms,                      # on the card (CUDA graph replay)
+        "call_ms": call_ms,            # one eager call in a loop: host-bound when short
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,  # torch.sparse.mm, CSR of the tile edges
+        "library_ms": library_ms,      # torch.sparse.mm, CSR of the tile edges, on the card
+        "library_call_ms": library_call_ms,
         "bf16_ms": bf16_ms,
-        "dense_products_ms": dense_ms,
+        "bf16_call_ms": bf16_call_ms,
+        "bf16_bound_ms": bf16_bound_ms,
+        "dense_products_ms": dense_products_ms,
+        # the same partition through the other kernel
+        "dense_layout_source": KERNEL_SOURCE["dense"],
+        "dense_layout_max_abs_err": checked[("dense", torch.float32)][1],
+        "dense_layout_ms": dense_ms,
+        "dense_layout_call_ms": dense_call_ms,
+        "dense_layout_bf16_ms": dense_bf16_ms,
+        "dense_layout_plain_ms": dense_plain_ms,
+        "dense_layout_bound_ms": dense_bound_ms,
+        "dense_layout_bound_by": dense_bound_by,
+        "dense_layout_bf16_bound_ms": dense_bf16_bound_ms,
     }
 
 
@@ -472,6 +583,9 @@ def _profile_steps(trainer, users, pos, neg, steps: int = 5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # a throwaway profile first: the first one of a process sets the tracer up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        trainer.train_step(users[0], pos[0], neg[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -511,8 +625,10 @@ def _twin_trainers(dev, bundle, tmp, model_name, content=None):
         trainers[tile] = Trainer(cfg, model, bundle)
         torch.cuda.synchronize()
         build_s[tile] = time.perf_counter() - t0
-    check(isinstance(trainers[True].graph, block_spmm.TiledDeviceGraph),
-          f"{model_name}: the tile trainer runs the tiles")
+    graph = trainers[True].graph
+    check(isinstance(graph, block_spmm.TiledDeviceGraph) and graph.tiles.layout == "compressed"
+          and graph.tiles.tile_a is None,
+          f"{model_name}: the tile trainer runs the tiles, in the compressed layout")
     return trainers, build_s
 
 
@@ -622,7 +738,45 @@ def phase_train(dev, bundle):
     for tile, name in ((True, "tile"), (False, "ell")):
         prof = _profile_steps(trainers[tile], users, pos, neg)
         print(f"profile_{name}: " + json.dumps(prof), flush=True)
+    _min_fill_scan(dev, bundle, tmp, trainers[False], users, pos, neg)
     return launches, step_ms
+
+
+def _min_fill_scan(dev, bundle, tmp, ell_trainer, users, pos, neg):
+    """Measurement only: ms per step of a tile trainer at each
+    ``tile_min_fill`` of ``SCAN_MIN_FILLS`` beside the ELL trainer's, all
+    on the same batches, the first step of each left out.  Stops starting
+    new trainers once ``MIN_FILL_SCAN_BUDGET_S`` is spent."""
+    t_start = time.perf_counter()
+
+    def steps_ms(t):
+        t.train_step(users[0], pos[0], neg[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, TRAIN_STEPS):
+            t.train_step(users[s], pos[s], neg[s])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+
+    scan = {"ell_ms_per_step": steps_ms(ell_trainer)}
+    for min_fill in SCAN_MIN_FILLS:
+        if time.perf_counter() - t_start > MIN_FILL_SCAN_BUDGET_S:
+            scan[f"min_fill_{min_fill}"] = "not measured: time box spent"
+            continue
+        cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048, tile_spmm=True,
+                     tile_min_fill=min_fill, checkpoint_dir=tmp, results_dir=tmp)
+        model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands,
+                                      cfg, device=dev)
+        model.init(torch.Generator().manual_seed(42))
+        tiles = Trainer(cfg, model, bundle)
+        t = tiles.graph.tiles
+        scan[f"min_fill_{min_fill}"] = {
+            "ms_per_step": steps_ms(tiles), "tiles": t.num_tiles, "layout": t.layout,
+            "tile_edges": int(t.values.numel()) if t.layout == "compressed" else None,
+            "row_blocks": t.n_row_blocks,
+        }
+        del tiles, model
+    print("min_fill_scan: " + json.dumps(scan), flush=True)
 
 
 def _tile_bsr(layout, dev):
@@ -679,13 +833,16 @@ def phase_exp_tiles(dev):
     e = torch.from_numpy(layout.e).to(dev)
     tiles = {name: exp_block_tiles.device_tiles(layout, tb, dtype, dev)
              for name, (tb, dtype) in cases.items()}
+    check(all(t.layout == "dense" and t.edge_w is None for t in tiles.values()),
+          "exp_tiles: layout auto picks dense on the experiment's tiles (fill 1 >= "
+          f"{block_spmm.AUTO_DENSE_MIN_FILL})")
     out1 = block_spmm.tile_matvec(e, tiles["x1_f32"])
     out2 = block_spmm.tile_matvec(e, tiles["x2_f32"])
     torch.cuda.synchronize()
     gap, scale = (out1 - out2).abs().max().item(), out1.abs().max().item()
-    check(gap <= exp_block_tiles.RTOL * max(1.0, scale),
-          f"exp_tiles: one tile per step equals 8 tiles per step (max abs diff {gap:.3g}, "
-          f"max|out| {scale:.3g})")
+    check(gap == 0.0,
+          f"exp_tiles: one tile per step equals 8 tiles per step bit for bit (max abs diff "
+          f"{gap:.3g}, max|out| {scale:.3g})")
     # the bf16 limit tells a rounded window from an unrounded one
     outb = block_spmm.tile_matvec(e, tiles["x1_bf16"])
     off = (outb - exp_block_tiles.reference(e, tiles["x1_bf16"], layout.m, round_window=False)
@@ -698,21 +855,26 @@ def phase_exp_tiles(dev):
     check(abs(sums[0] - sums[1]) <= 1e-3 * max(1.0, abs(sums[0])),
           f"exp_tiles: both chains end in the same sum ({sums[0]:.6g}, {sums[1]:.6g})")
 
-    ms = {name: _cuda_ms(lambda t=t: block_spmm.tile_matvec(e, t)) for name, t in tiles.items()}
+    ms = {name: _device_ms(lambda t=t: block_spmm.tile_matvec(e, t)) for name, t in tiles.items()}
+    call_ms = {name: _cuda_ms(lambda t=t: block_spmm.tile_matvec(e, t))
+               for name, t in tiles.items()}
     plain_ms = {name: _cuda_ms(lambda t=t: exp_block_tiles.reference(e, t, layout.m),
                                reps=3, windows=3, warmup=1) for name, t in tiles.items()}
     bounds = {name: _tile_bound_ms(t, n, d) for name, t in tiles.items()}
 
-    # what the last, partly filled wave of row blocks costs: the same tiles
-    # cut to 132 and 264 row blocks (one and two thread blocks per SM)
+    # the same tiles cut to 132 and 264 row blocks.  When one thread block
+    # owned one row block these were one and two blocks per SM and 384 left a
+    # partly filled last wave; equal ranges of tiles should scale with the
+    # number of tiles instead
     by_rows = {}
     for r in sorted({132, 264, layout.r_blocks}):
         if r <= layout.r_blocks:
             sub = block_spmm.tiles_from_arrays(
                 layout.tile_a[: r * layout.m], layout.tile_col[: r * layout.m],
                 np.repeat(np.arange(r, dtype=np.int32), layout.m), 1, r, device=dev)
-            by_rows[r] = _cuda_ms(lambda sub=sub: block_spmm.tile_matvec(e, sub))
+            by_rows[r] = _device_ms(lambda sub=sub: block_spmm.tile_matvec(e, sub))
     print("exp_tiles ms_by_row_blocks: " + json.dumps(by_rows), flush=True)
+    del sub
 
     # library yardstick: one BSR product; "none" with the reason where this
     # PyTorch build has no such product on the card
@@ -737,13 +899,15 @@ def phase_exp_tiles(dev):
         return {
             "name": name,
             "route": "cuda",
-            "source": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
+            "layout": tiles[main].layout,
+            "source": KERNEL_SOURCE[tiles[main].layout],
             "replaces": replaces,
             "shape": [layout.num_tiles, TILE, TILE, d],
             "tiles_per_step": r["tiles_per_step"],
             "launches": launched,
             "max_abs_err": r["max_abs_err"],
-            "ms": ms[main],
+            "ms": ms[main],            # on the card (CUDA graph replay)
+            "call_ms": call_ms[main],  # one eager call in a loop
             "plain_ms": plain_ms[main],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -764,6 +928,7 @@ def phase_exp_tiles(dev):
     rb = runs["x1_bf16"]
     x1.update({
         "bf16_max_abs_err": rb["max_abs_err"], "bf16_ms": ms["x1_bf16"],
+        "bf16_call_ms": call_ms["x1_bf16"],
         "bf16_plain_ms": plain_ms["x1_bf16"], "bf16_bound_ms": b_ms, "bf16_bound_by": b_by,
         "bf16_bound_rate": "989 TFLOP/s bf16 tensor cores and 3.35 TB/s",
         "bf16_chain_ms_per_application": rb["ms"], "bf16_chain_gb_per_s": rb["gb_per_s"],
@@ -772,7 +937,55 @@ def phase_exp_tiles(dev):
     x2 = record("exp_tiles_batched (tile_matvec, 8 tiles per step)",
                 "tools/exp_block_pallas.py:185", "x2_f32", launches["x2_f32"])
     x2["max_abs_diff_vs_single"] = gap
+    del tiles, e, out1, out2
+    _fill_scan(dev)
     return x1, x2
+
+
+def _crossing(fills, a_ms, b_ms):
+    """The fill at which ``a_ms`` (rising with the fill) passes ``b_ms``,
+    interpolated in log(fill) between the two scan points around it; None
+    when they do not cross inside the scan."""
+    gap = [a - b for a, b in zip(a_ms, b_ms)]
+    for i in range(len(fills) - 1):
+        if gap[i] <= 0 < gap[i + 1]:
+            w = -gap[i] / (gap[i + 1] - gap[i])
+            return float(np.exp(np.log(fills[i]) + w * (np.log(fills[i + 1]) - np.log(fills[i]))))
+    return None
+
+
+def _fill_scan(dev):
+    """Both tile kernels on the experiment's geometry cut to 1,536 tiles
+    (16 in each of 96 row blocks, d = 64, seed 0), with the values kept at
+    random positions to each fill of ``SCAN_FILLS``: each kernel against
+    the plain version of its layout, its time on the card, and the fill at
+    which the compressed kernel's time passes the dense kernel's."""
+    layout = exp_block_tiles.make_layout(seed=0, r_blocks=96)
+    rows = np.repeat(np.arange(layout.r_blocks, dtype=np.int32), layout.m)
+    e = torch.from_numpy(layout.e).to(dev)
+    rng = np.random.default_rng(0)
+    names = [f"{lay}_{dt}" for lay in block_spmm.LAYOUTS for dt in ("f32", "bf16")]
+    scan = {"tiles": layout.num_tiles, "d": layout.d, "fills": list(SCAN_FILLS),
+            **{f"{k}_ms": [] for k in names}, "edges": []}
+    for fill in SCAN_FILLS:
+        a = layout.tile_a
+        if fill < 1.0:
+            a = np.where(rng.random(a.shape, dtype=np.float32) < fill, a, np.float32(0))
+        scan["edges"].append(int(np.count_nonzero(a)))
+        for lay in block_spmm.LAYOUTS:
+            f32 = block_spmm.tiles_from_arrays(a, layout.tile_col, rows, 1, layout.r_blocks,
+                                               device=dev, layout=lay)
+            key = "tile_a" if lay == "dense" else "edge_w"
+            bf16 = dataclasses.replace(f32, **{key: f32.values.to(torch.bfloat16)})
+            for dt, t in (("f32", f32), ("bf16", bf16)):
+                _check_tiles(t, e, f"the fill scan at fill {fill:g}", scaled=True)
+                scan[f"{lay}_{dt}_ms"].append(_device_ms(lambda t=t: block_spmm.tile_matvec(e, t)))
+            del f32, bf16, t
+    for dt in ("f32", "bf16"):
+        scan[f"crossing_fill_{dt}"] = _crossing(
+            SCAN_FILLS, scan[f"compressed_{dt}_ms"], scan[f"dense_{dt}_ms"])
+    scan["auto_dense_min_fill"] = block_spmm.AUTO_DENSE_MIN_FILL
+    print("fill_scan: " + json.dumps(scan), flush=True)
 
 
 def phase_fusion(dev, bundle, lightgcn_step_ms):

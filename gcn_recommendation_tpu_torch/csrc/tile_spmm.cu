@@ -1,130 +1,210 @@
-// Block-sparse tile product for Hopper (sm_90a): for each compact row
-// block r of the tile partition (graph/tiles.py),
+// Block-sparse tile product over dense tiles for Hopper (sm_90a): for each
+// compact row block r of a tile layout (graph/tiles.py, tools/exp_block_tiles.py),
 //   out[128r : 128r+128] = sum over tiles t of r of  A_t @ emb[128*col_t : 128*col_t+128]
 // with A_t a dense 128x128 tile (float32 or bfloat16) and the f32 sum.
 //
-// Replaces the Pallas TPU kernel gcn_recommendation_tpu/ops/block_spmm.py::
-// _make_tile_call (inner `kernel`, :79).  There the grid runs in order on
-// one core and carries the [128, d] accumulator from step to step,
-// zeroing it when step_row changes.  Here one thread block owns one row
-// block: it loops over that block's steps row_step_ptr[r] .. row_step_ptr[r+1]
-// (TB tiles each), keeps the accumulator in registers and writes row
-// block r exactly once.  No atomics, and the result does not depend on
-// the schedule.
+// Replaces the Pallas TPU kernels gcn_recommendation_tpu/ops/block_spmm.py::
+// _make_tile_call (inner `kernel`, :79) and tools/exp_block_pallas.py:47 and
+// :155 (one and eight tiles per grid step) for tiles that are mostly
+// nonzero.  There the grid runs in order on one core, carries the [128, d]
+// accumulator from step to step and lets the pipeline fetch the next
+// step's tiles; nothing of that carries over to 132 SMs that run blocks in
+// no order.  Almost empty tiles go to csrc/tile_gather_spmm.cu instead.
 //
-// Bound.  At the books-shaped bundle (T = 3,344 tiles, d = 64) the dense
-// tile products are 2*T*128*128*d = 7.0 GFLOP, 0.105 ms of float32 FMA at
-// the H100's 67 TFLOP/s, against 336 MB of tile values, windows and output
-// (0.100 ms at 3.35 TB/s): the dense formulation is bound by operations.
-// The tiles hold ~0.35% nonzeros, so nearly all of that work multiplies
-// zeros; the data itself needs only the bytes.  This first version keeps
-// the dense products (it computes what the TPU kernel computes) and does
-// the simple things about the bound: coalesced 16-byte loads of each tile
-// and window into shared memory, an 8x4 register micro-tile per thread
-// (12 shared-memory loads per 128 FMAs), conflict-free shared reads (the
-// staged tile's rows are padded to 132 floats).  It does not overlap loads
-// with compute, does not use tensor cores, and does not split heavy row
-// blocks (rows are sorted by degree, so the first blocks own the most
-// tiles).  Those are a later redesign's work.
+// Bound.  On the experiment's layout (T = 6,144 tiles, every value nonzero,
+// d = 64): 2*T*128*128*d = 12.9 GFLOP.  float32 tiles: 0.192 ms of FMA at
+// the H100's 67 TFLOP/s against 434 MB (0.130 ms at 3.35 TB/s), bound by
+// operations, but the two are close, so neither may wait for the other.
+// bfloat16 tiles: 232 MB, 0.069 ms, bound by bytes; the products are exact
+// in float32 and take 0.013 ms at the tensor cores' 989 TFLOP/s.
 //
-// Numbers: the sum runs in float32 with explicit __fmaf_rn (the build's
-// -fmad=false stops only implicit contraction).  FMA rounds once per term
-// where a multiply and an add round twice, and the order of the sum
-// differs from the plain PyTorch version anyway; the two agree within
-// 1e-5.  bfloat16 tiles: the window is rounded to bfloat16 as it is
-// staged (the TPU kernel's e_refs[j][:].astype(compute_dtype)), and a
-// product of two bfloat16 values is exact in float32, so only the f32
-// sum rounds.  TF32 is not used.
+// Design.
+// * Overlap.  Each thread block runs a ring of two stages in dynamic shared
+//   memory, filled with cp.async while the other stage is multiplied: one
+//   __syncthreads per stage, a stage's loads always in flight.  A stage
+//   holds 64 columns of a float32 tile and the matching 64 rows of its
+//   embedding window (50 KB at d = 64), or a whole bfloat16 tile and its
+//   window (52 KB); two blocks fit an SM either way.  Tile values are
+//   loaded with an evict-first hint for the L2, the windows without, so the
+//   embedding stays cached while the tiles stream through.  More or
+//   smaller stages, or one block per SM, measured slower on the card.
+// * Balance.  The blocks are persistent: the host cuts the list of tiles
+//   that hold a value (ops/block_spmm.py::plan_tile_ranges) into equal
+//   contiguous ranges, one per block, two blocks per SM, so no block waits
+//   for a heavy row block, no wave is partly filled and all-zero padding
+//   tiles are never read.  A range is split into segments where the row
+//   block changes.  A segment that holds a whole row block is written
+//   straight to the output; the others go to a scratch buffer of partial
+//   [128, d] sums, and a second small kernel writes each remaining row
+//   block as the sum of its partials in order (zeros when it has none).
+//   No atomics; the cut is made in tiles, so the number of tiles per step
+//   of the layout changes no bit of the result.
+// * bfloat16 tiles on the tensor cores.  The embedding is rounded to
+//   bfloat16 once, by a small kernel, into a table padded to whole windows
+//   (the TPU kernel's e_refs[j][:].astype(compute_dtype); rows past N are
+//   zeros), so tile and window go to shared memory as they are and meet in
+//   mma.sync.m16n8k16 through ldmatrix.  Each warp owns 16 output rows.
+//   The tensor cores do not round a long chain of sums as IEEE adds do, so
+//   each tile (eight k-steps) is accumulated from zero and then added to
+//   the running float32 sum with ordinary adds.
+// * float32 tiles stay on the FMA units (TF32 would keep 10 mantissa
+//   bits): an 8x4 register micro-tile per thread, 12 shared-memory loads
+//   per 128 explicit __fmaf_rn (the build's -fmad=false stops only implicit
+//   contraction), conflict-free shared reads (tile rows padded by 4 floats).
 //
 // Ragged edge: when N is not a multiple of 128, window rows >= N read as
-// zeros; the embedding is not padded.  Padding tiles (zero values,
-// column block 0) add zeros.
+// zeros (cp.async with a source size of 0); the embedding is not padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kALd = kTile + 4;       // staged tile row stride, in floats
-constexpr int kRowGroups = 16;        // thread rows of the micro-tile grid
-constexpr int kRowsPerThread = kTile / kRowGroups;  // 8, rows tr + 16*m
-constexpr int kMaxD = 128;            // 16 * (kMaxD / 4) = 512 threads
+constexpr int kMaxD = 128;
 
-__device__ __forceinline__ float to_bf16_and_back(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// float32 path: a stage holds kKCF32 columns of a tile
+constexpr int kKCF32 = 64;
+constexpr int kStagesF32 = 2;
+constexpr int kRowGroups = 16;                 // thread rows of the micro-tile grid
+constexpr int kRowsPerThread = kTile / kRowGroups;  // 8, rows tr + 16*m
+
+// bfloat16 path: a stage holds kKCBf16 columns of a tile
+constexpr int kKCBf16 = 128;
+constexpr int kMmaThreads = 256;               // 8 warps x 16 rows
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
-template <typename TA>
+// tile values are read once: ask the L2 to drop them first, so that the
+// embedding windows, which every block reads again, stay
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void cp_async16_stream(void* smem, const void* gmem,
+                                                  unsigned long long policy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// the tiles of one thread block: its segments and its range of the tile list
+struct BlockRange {
+  int seg, seg_end, list_begin, n_chunks;
+};
+
+__device__ __forceinline__ BlockRange block_range(const int4* __restrict__ segments,
+                                                  const int32_t* __restrict__ block_seg_ptr,
+                                                  int chunks_per_tile) {
+  BlockRange r;
+  r.seg = block_seg_ptr[blockIdx.x];
+  r.seg_end = block_seg_ptr[blockIdx.x + 1];
+  r.list_begin = r.n_chunks = 0;
+  if (r.seg < r.seg_end) {
+    r.list_begin = segments[r.seg].x;
+    r.n_chunks = (segments[r.seg_end - 1].y - r.list_begin) * chunks_per_tile;
+  }
+  return r;
+}
+
+// where a finished segment goes: its row block of the output (slot < 0) or
+// its slot of the partial sums
+__device__ __forceinline__ float* segment_dest(const int4& sg, float* partials, float* out,
+                                               int d) {
+  return sg.w < 0 ? out + (long long)sg.z * kTile * d : partials + (long long)sg.w * kTile * d;
+}
+
+// ------------------------------------------------------------------ float32
+
+template <int kKC, int kStages>
 __global__ void __launch_bounds__(kRowGroups * kMaxD / 4)
-tile_spmm_kernel(const TA* __restrict__ tile_a,
-                 const int32_t* __restrict__ tile_col,
-                 const int32_t* __restrict__ row_step_ptr,
-                 const float* __restrict__ emb, float* __restrict__ out,
-                 int tb, long long n, int d) {
-  constexpr bool kBf16 = std::is_same<TA, __nv_bfloat16>::value;
+tile_spmm_f32_kernel(const float* __restrict__ tile_a,
+                     const int32_t* __restrict__ list_tile,
+                     const int32_t* __restrict__ list_col,
+                     const int4* __restrict__ segments,
+                     const int32_t* __restrict__ block_seg_ptr,
+                     const float* __restrict__ emb, float* __restrict__ partials,
+                     float* __restrict__ out, long long n, int d) {
+  static_assert(kKC == 32 || kKC == 64, "a tile row of a stage is 8 or 16 float4s");
+  constexpr int kChunksPerTile = kTile / kKC;
+  constexpr int kALd = kKC + 4;  // staged tile row stride, floats: conflict-free reads
+  constexpr int kAFloats = kTile * kALd;
+  constexpr int kAQuads = kKC / 4;  // float4s of a staged tile row
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // [128][kALd]
-  float* e_s = a_s + kTile * kALd;               // [128][d]
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int stage_floats = kAFloats + kKC * d;
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int cg = d >> 2;  // column groups of 4 columns
+  const int cg = d >> 2;    // column groups of 4 columns; the block has 16 * cg threads
   const int tc = tid % cg;
   const int tr = tid / cg;  // 0 .. kRowGroups-1
-  const int r = blockIdx.x;
+
+  const BlockRange br = block_range(segments, block_seg_ptr, kChunksPerTile);
+  if (br.n_chunks == 0) return;
+  const unsigned long long policy = evict_first_policy();
+
+  // this thread's share of a stage: tile rows a_row, a_row + a_step, ... at
+  // float4 a_quad, and window rows tr, tr + 16, ... at float4 tc
+  const int a_row = tid / kAQuads, a_quad = tid % kAQuads;
+  const int a_step = blockDim.x / kAQuads;
+
+  // fill stage q % kStages with chunk q: kKC columns of a tile, kKC window rows
+  auto fetch = [&](int q) {
+    const int idx = br.list_begin + q / kChunksPerTile;
+    const int k0 = (q % kChunksPerTile) * kKC;
+    float* a_s = smem + (q % kStages) * stage_floats;
+    float* e_s = a_s + kAFloats + tc * 4;
+    const float* a_g = tile_a + (long long)list_tile[idx] * kTile * kTile + k0 + a_quad * 4;
+    a_s += a_quad * 4;
+    for (int row = a_row; row < kTile; row += a_step)
+      cp_async16_stream(a_s + row * kALd, a_g + row * kTile, policy);
+    const long long base = (long long)list_col[idx] * kTile + k0;
+    const float* e_g = emb + base * d + tc * 4;
+#pragma unroll
+    for (int row = tr; row < kKC; row += kRowGroups) {
+      const bool inside = base + row < n;  // rows past N: zero fill, nothing read
+      cp_async16(e_s + row * d, inside ? e_g + (long long)row * d : emb, inside ? 16 : 0);
+    }
+  };
 
   float acc[kRowsPerThread][4];
 #pragma unroll
   for (int m = 0; m < kRowsPerThread; ++m)
     acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
 
-  const long long t_begin = (long long)row_step_ptr[r] * tb;
-  const long long t_end = (long long)row_step_ptr[r + 1] * tb;
-  for (long long t = t_begin; t < t_end; ++t) {
-    // stage tile t as float32, 16-byte loads
-    if constexpr (kBf16) {
-      const uint4* src = reinterpret_cast<const uint4*>(tile_a + t * kTile * kTile);
-      for (int i = tid; i < kTile * kTile / 8; i += nthreads) {
-        const int row = i >> 4, c8 = i & 15;
-        const uint4 v = src[i];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-        const float2 f0 = __bfloat1622float2(h[0]);
-        const float2 f1 = __bfloat1622float2(h[1]);
-        const float2 f2 = __bfloat1622float2(h[2]);
-        const float2 f3 = __bfloat1622float2(h[3]);
-        float4* dst = reinterpret_cast<float4*>(a_s + row * kALd + c8 * 8);
-        dst[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
-        dst[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
-      }
-    } else {
-      const float4* src = reinterpret_cast<const float4*>(tile_a + t * kTile * kTile);
-      for (int i = tid; i < kTile * kTile / 4; i += nthreads) {
-        const int row = i >> 5, c4 = i & 31;
-        *reinterpret_cast<float4*>(a_s + row * kALd + c4 * 4) = src[i];
-      }
-    }
-    // stage the embedding window; rows past N read as zeros
-    const long long base = (long long)tile_col[t] * kTile;
-    for (int i = tid; i < kTile * cg; i += nthreads) {
-      const int row = i / cg, c4 = i % cg;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (base + row < n)
-        v = reinterpret_cast<const float4*>(emb + (base + row) * d)[c4];
-      if constexpr (kBf16) {
-        v.x = to_bf16_and_back(v.x);
-        v.y = to_bf16_and_back(v.y);
-        v.z = to_bf16_and_back(v.z);
-        v.w = to_bf16_and_back(v.w);
-      }
-      *reinterpret_cast<float4*>(e_s + row * d + c4 * 4) = v;
-    }
-    __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < br.n_chunks) fetch(s);
+    cp_async_commit();
+  }
+  int seg = br.seg;
+  int4 sg = segments[seg];
+  for (int q = 0; q < br.n_chunks; ++q) {
+    cp_async_wait<kStages - 2>();  // chunk q has landed (this thread's part)
+    __syncthreads();               // everyone's part; stage (q-1) % kStages is free
+    if (q + kStages - 1 < br.n_chunks) fetch(q + kStages - 1);
+    cp_async_commit();
 
-    for (int k = 0; k < kTile; k += 4) {
+    const float* a_s = smem + (q % kStages) * stage_floats;
+    const float* e_s = a_s + kAFloats;
+#pragma unroll 4
+    for (int k = 0; k < kKC; k += 4) {
       float4 a[kRowsPerThread];
 #pragma unroll
       for (int m = 0; m < kRowsPerThread; ++m)
@@ -142,29 +222,244 @@ tile_spmm_kernel(const TA* __restrict__ tile_a,
         }
       }
     }
-    __syncthreads();
-  }
 
+    // the segment's last chunk: write its sum and start the next segment
+    if (q % kChunksPerTile == kChunksPerTile - 1 &&
+        br.list_begin + q / kChunksPerTile + 1 == sg.y) {
+      float* dest = segment_dest(sg, partials, out, d);
 #pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) {
-    const long long row = (long long)r * kTile + tr + kRowGroups * m;
-    *reinterpret_cast<float4*>(out + row * d + tc * 4) =
-        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      for (int m = 0; m < kRowsPerThread; ++m) {
+        *reinterpret_cast<float4*>(dest + (tr + kRowGroups * m) * d + tc * 4) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
+      }
+      if (++seg < br.seg_end) sg = segments[seg];
+    }
   }
 }
 
-template <typename TA>
-int launch(const void* tile_a, const void* tile_col, const void* row_step_ptr,
-           const void* emb, void* out, int n_row_blocks, int tb, long long n,
-           int d, cudaStream_t stream) {
+// ----------------------------------------------------------------- bfloat16
+
+// emb [n, d] float32 -> win [rows_pad, dpad] bfloat16, zeros outside [n, d]
+__global__ void round_window_kernel(const float* __restrict__ emb,
+                                    __nv_bfloat16* __restrict__ win, long long n,
+                                    long long rows_pad, int d, int dpad) {
+  const int q4 = dpad >> 2;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows_pad * q4) return;
+  const long long row = i / q4;
+  const int c = (int)(i % q4) * 4;
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (row < n && c < d) v = *reinterpret_cast<const float4*>(emb + row * d + c);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<unsigned*>(&lo);
+  packed.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(win + row * dpad + c) = packed;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// c += a (16x16, row major) x b (16x8, column major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// kNT16: 16-column groups of the output held in registers (dpad <= 16 * kNT16)
+template <int kKC, int kNT16, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
+tile_spmm_bf16_kernel(const __nv_bfloat16* __restrict__ tile_a,
+                      const int32_t* __restrict__ list_tile,
+                      const int32_t* __restrict__ list_col,
+                      const int4* __restrict__ segments,
+                      const int32_t* __restrict__ block_seg_ptr,
+                      const __nv_bfloat16* __restrict__ win, float* __restrict__ partials,
+                      float* __restrict__ out, int d, int dpad) {
+  static_assert(kKC == 32 || kKC == 64 || kKC == 128, "kKC / 8 pieces of 16 bytes a tile row");
+  constexpr int kChunksPerTile = kTile / kKC;
+  constexpr int kBLd = kKC + 8;  // staged tile row stride, bf16: an odd multiple of 16 bytes
+  constexpr int kAElems = kTile * kBLd;
+  constexpr int kAPieces = kKC / 8;  // 16-byte pieces of a staged tile row
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int lde = dpad + 8;  // staged window row stride: an odd multiple of 16 bytes
+  const int stage_elems = kAElems + kKC * lde;
+  const int nt16 = dpad >> 4;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  const BlockRange br = block_range(segments, block_seg_ptr, kChunksPerTile);
+  if (br.n_chunks == 0) return;
+  const unsigned long long policy = evict_first_policy();
+
+  // this thread's share of a stage: tile rows a_row, a_row + 256 / kAPieces,
+  // ... at piece a_piece, and window rows e_row, e_row + 16, ... at piece
+  // e_piece when the window row has that many
+  const int a_row = tid / kAPieces, a_piece = tid % kAPieces;
+  const int e_row = tid >> 4, e_piece = tid & 15;
+  const bool e_lane = e_piece < (dpad >> 3);
+
+  auto fetch = [&](int q) {
+    const int idx = br.list_begin + q / kChunksPerTile;
+    const int k0 = (q % kChunksPerTile) * kKC;
+    __nv_bfloat16* a_s = smem + (q % kStages) * stage_elems;
+    __nv_bfloat16* e_s = a_s + kAElems + e_piece * 8;
+    const __nv_bfloat16* a_g =
+        tile_a + (long long)list_tile[idx] * kTile * kTile + k0 + a_piece * 8;
+    a_s += a_piece * 8;
+#pragma unroll
+    for (int row = a_row; row < kTile; row += kMmaThreads / kAPieces)
+      cp_async16_stream(a_s + row * kBLd, a_g + row * kTile, policy);
+    const __nv_bfloat16* e_g =
+        win + ((long long)list_col[idx] * kTile + k0) * dpad + e_piece * 8;
+    if (e_lane) {
+#pragma unroll
+      for (int row = e_row; row < kKC; row += kMmaThreads / 16)
+        cp_async16(e_s + row * lde, e_g + (long long)row * dpad, 16);
+    }
+  };
+
+  float run[2 * kNT16][4];  // the segment's running sum: 16 rows x 8 columns a warp each
+#pragma unroll
+  for (int j = 0; j < 2 * kNT16; ++j) run[j][0] = run[j][1] = run[j][2] = run[j][3] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < br.n_chunks) fetch(s);
+    cp_async_commit();
+  }
+  int seg = br.seg;
+  int4 sg = segments[seg];
+  for (int q = 0; q < br.n_chunks; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (q + kStages - 1 < br.n_chunks) fetch(q + kStages - 1);
+    cp_async_commit();
+
+    const __nv_bfloat16* a_s = smem + (q % kStages) * stage_elems;
+    const __nv_bfloat16* e_s = a_s + kAElems;
+    float c[2 * kNT16][4];  // this chunk alone, from zero
+#pragma unroll
+    for (int j = 0; j < 2 * kNT16; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, a_s + (warp * 16 + (lane & 15)) * kBLd + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < kNT16; ++j) {
+        if (j < nt16) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, e_s + (kk * 16 + (lane & 15)) * lde + j * 16 + (lane >> 4) * 8);
+          mma_bf16(c[2 * j], a, b[0], b[1]);
+          mma_bf16(c[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * kNT16; ++j) {
+      run[j][0] = __fadd_rn(run[j][0], c[j][0]);
+      run[j][1] = __fadd_rn(run[j][1], c[j][1]);
+      run[j][2] = __fadd_rn(run[j][2], c[j][2]);
+      run[j][3] = __fadd_rn(run[j][3], c[j][3]);
+    }
+
+    if (q % kChunksPerTile == kChunksPerTile - 1 &&
+        br.list_begin + q / kChunksPerTile + 1 == sg.y) {
+      float* dest = segment_dest(sg, partials, out, d);
+      const int row = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 2 * kNT16; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+        if (col < d) {
+          *reinterpret_cast<float2*>(dest + row * d + col) = make_float2(run[j][0], run[j][1]);
+          *reinterpret_cast<float2*>(dest + (row + 8) * d + col) =
+              make_float2(run[j][2], run[j][3]);
+        }
+        run[j][0] = run[j][1] = run[j][2] = run[j][3] = 0.0f;
+      }
+      if (++seg < br.seg_end) sg = segments[seg];
+    }
+  }
+}
+
+// -------------------------------------------------------------- second pass
+
+// out[row block] = sum of its partial slots, in order (none: zeros)
+__global__ void tile_reduce_kernel(const int32_t* __restrict__ reduce_rows,
+                                   const int32_t* __restrict__ reduce_ptr,
+                                   const float* __restrict__ partials,
+                                   float* __restrict__ out, int d) {
+  const int per_block = kTile * d / 4;
+  const long long r = reduce_rows[blockIdx.x];
+  const int p0 = reduce_ptr[blockIdx.x], p1 = reduce_ptr[blockIdx.x + 1];
+  const float4* src = reinterpret_cast<const float4*>(partials);
+  float4* dst = reinterpret_cast<float4*>(out) + r * per_block;
+  for (int i = threadIdx.x; i < per_block; i += blockDim.x) {
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int p = p0; p < p1; ++p) {
+      const float4 v = src[(long long)p * per_block + i];
+      s.x = __fadd_rn(s.x, v.x);
+      s.y = __fadd_rn(s.y, v.y);
+      s.z = __fadd_rn(s.z, v.z);
+      s.w = __fadd_rn(s.w, v.w);
+    }
+    dst[i] = s;
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+struct Plan {
+  const int32_t* list_tile;
+  const int32_t* list_col;
+  const int4* segments;
+  const int32_t* block_seg_ptr;
+  int n_blocks;
+};
+
+int launch_f32(const void* tile_a, const Plan& p, const float* emb, float* partials,
+               float* out, long long n, int d, cudaStream_t stream) {
   const int threads = kRowGroups * (d / 4);
-  const size_t smem = sizeof(float) * (size_t)kTile * (kALd + d);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_spmm_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem =
+      sizeof(float) * kStagesF32 * ((size_t)kTile * (kKCF32 + 4) + (size_t)kKCF32 * d);
+  cudaError_t err = cudaFuncSetAttribute(tile_spmm_f32_kernel<kKCF32, kStagesF32>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tile_spmm_kernel<TA><<<n_row_blocks, threads, smem, stream>>>(
-      (const TA*)tile_a, (const int32_t*)tile_col, (const int32_t*)row_step_ptr,
-      (const float*)emb, (float*)out, tb, n, d);
+  tile_spmm_f32_kernel<kKCF32, kStagesF32><<<p.n_blocks, threads, smem, stream>>>(
+      (const float*)tile_a, p.list_tile, p.list_col, p.segments, p.block_seg_ptr, emb,
+      partials, out, n, d);
+  return (int)cudaGetLastError();
+}
+
+template <int kKC, int kNT16, int kStages, int kMinBlocks>
+int launch_bf16(const void* tile_a, const Plan& p, const __nv_bfloat16* win, float* partials,
+                float* out, int d, int dpad, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * kStages * ((size_t)kTile * (kKC + 8) + (size_t)kKC * (dpad + 8));
+  auto kernel = tile_spmm_bf16_kernel<kKC, kNT16, kStages, kMinBlocks>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.n_blocks, kMmaThreads, smem, stream>>>(
+      (const __nv_bfloat16*)tile_a, p.list_tile, p.list_col, p.segments, p.block_seg_ptr, win,
+      partials, out, d, dpad);
   return (int)cudaGetLastError();
 }
 
@@ -172,19 +467,47 @@ int launch(const void* tile_a, const void* tile_col, const void* row_step_ptr,
 
 // Launch on `stream`; returns a CUDA error code (0 on success), or -1 for
 // a width the kernel does not take (d must be a multiple of 4 in [4, 128]).
-// tile_a [T, 128, 128] (float32, or bfloat16 when tile_is_bf16), tile_col
-// [T] int32, row_step_ptr [R + 1] int32 (steps of TB tiles per row block),
-// emb [n, d] float32, out [R * 128, d] float32; all contiguous and 16-byte
-// aligned.
-extern "C" int tile_spmm_launch(const void* tile_a, int tile_is_bf16,
-                                const void* tile_col, const void* row_step_ptr,
-                                const void* emb, void* out, int n_row_blocks,
-                                int tb, long long n, int d, void* stream) {
+// tile_a [T, 128, 128] (float32, or bfloat16 when tile_is_bf16); the plan of
+// ops/block_spmm.py::plan_tile_ranges: list_tile / list_col [Ta] int32,
+// segments [S, 4] int32, block_seg_ptr [n_blocks + 1] int32, reduce_rows
+// [n_reduce] and reduce_ptr [n_reduce + 1] int32; emb [n, d] float32; window
+// [ceil(n / 128) * 128, ceil(d / 16) * 16] bfloat16 scratch (bfloat16 tiles
+// only); partials [slots, 128, d] float32 scratch; out [R * 128, d] float32.
+// All contiguous and 16-byte aligned.
+extern "C" int tile_spmm_launch(const void* tile_a, int tile_is_bf16, const void* list_tile,
+                                const void* list_col, const void* segments,
+                                const void* block_seg_ptr, int n_blocks,
+                                const void* reduce_rows, const void* reduce_ptr, int n_reduce,
+                                const void* emb, void* window, void* partials, void* out,
+                                long long n, int d, void* stream_ptr) {
   if (d < 4 || d > kMaxD || d % 4 != 0) return -1;
-  if (n_row_blocks <= 0) return 0;
-  if (tile_is_bf16)
-    return launch<__nv_bfloat16>(tile_a, tile_col, row_step_ptr, emb, out,
-                                 n_row_blocks, tb, n, d, (cudaStream_t)stream);
-  return launch<float>(tile_a, tile_col, row_step_ptr, emb, out, n_row_blocks,
-                       tb, n, d, (cudaStream_t)stream);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Plan p = {(const int32_t*)list_tile, (const int32_t*)list_col, (const int4*)segments,
+                  (const int32_t*)block_seg_ptr, n_blocks};
+  int err = 0;
+  if (n_blocks > 0 && !tile_is_bf16) {
+    err = launch_f32(tile_a, p, (const float*)emb, (float*)partials, (float*)out, n, d, stream);
+  } else if (n_blocks > 0) {
+    const int dpad = (d + 15) / 16 * 16;
+    const long long rows_pad = (n + kTile - 1) / kTile * kTile;
+    const long long quads = rows_pad * (dpad / 4);
+    round_window_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+        (const float*)emb, (__nv_bfloat16*)window, n, rows_pad, d, dpad);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    if (dpad <= 64)
+      err = launch_bf16<kKCBf16, 4, 2, 2>(tile_a, p, (const __nv_bfloat16*)window, (float*)partials,
+                                 (float*)out, d, dpad, stream);
+    else
+      err = launch_bf16<kKCBf16, 8, 2, 1>(tile_a, p, (const __nv_bfloat16*)window, (float*)partials,
+                                 (float*)out, d, dpad, stream);
+  }
+  if (err != 0) return err;
+  if (n_reduce > 0) {
+    tile_reduce_kernel<<<n_reduce, 256, 0, stream>>>(
+        (const int32_t*)reduce_rows, (const int32_t*)reduce_ptr, (const float*)partials,
+        (float*)out, d);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }

@@ -41,6 +41,12 @@ class TilePartition:
     step s (non-decreasing).  ``tile_gather_idx[v]`` is node v's row in
     the compact output, or R*128 (a trailing zeros row) when v's row
     holds no tile.
+
+    The ``edge_*`` arrays hold the same tile edges compressed: a CSR over
+    the ``R*128`` compact output rows whose entries are (global source
+    node ``128*col_t + c``, weight), ordered within a row by tile, then
+    column.  They rebuild ``tile_a`` exactly; the compressed layout of
+    ``ops/block_spmm.py`` ships them instead of the dense tiles.
     """
 
     tile_a: np.ndarray           # [T, 128, 128] f32
@@ -52,6 +58,9 @@ class TilePartition:
     n_row_blocks: int
     covered_edges: int
     residual: Graph              # same Graph type, tile edges removed
+    edge_row_ptr: np.ndarray     # [R*128 + 1] int32 — edges of each compact row
+    edge_src: np.ndarray         # [covered_edges] int32 — source node ids
+    edge_w: np.ndarray           # [covered_edges] f32
 
     @property
     def num_tiles(self) -> int:
@@ -156,6 +165,12 @@ def partition_tiles(
 
     step_row = np.repeat(np.arange(n_row_blocks), padded_per_rb // tb)
 
+    # the same edges as a CSR over the compact rows: by row, tile, column
+    e_row = rb_of_tile[tile_of_edge] * TILE + e_r
+    eorder = np.lexsort((e_c, e_slot, e_row))
+    edge_row_ptr = np.zeros(n_row_blocks * TILE + 1, np.int64)
+    np.cumsum(np.bincount(e_row, minlength=n_row_blocks * TILE), out=edge_row_ptr[1:])
+
     # residual graph: every edge not in a tile, re-bucketed (hub rows keep
     # all their edges, so the dense path re-emerges identically)
     keep = ~in_tile
@@ -190,6 +205,9 @@ def partition_tiles(
         n_row_blocks=n_row_blocks,
         covered_edges=int(in_tile.sum()),
         residual=residual,
+        edge_row_ptr=edge_row_ptr.astype(np.int32),
+        edge_src=te_src[torder][eorder].astype(np.int32),
+        edge_w=te_w[torder][eorder].astype(np.float32),
     )
 
 

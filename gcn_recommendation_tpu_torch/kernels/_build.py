@@ -42,8 +42,18 @@ _SIGNATURES = {
     "tile_spmm": {
         "tile_spmm_launch": (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+    },
+    "tile_gather_spmm": {
+        "tile_gather_spmm_launch": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+             ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
     },

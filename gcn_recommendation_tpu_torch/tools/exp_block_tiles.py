@@ -13,10 +13,13 @@ the kernel's own.
 * the batched kernel (``:155``, call ``:185``): 8 tiles per step, a row id
   per step.
 
-Both are launched here as the hand-written CUDA kernel
-``csrc/tile_spmm.cu`` through ``tile_matvec`` on a CUDA tensor (the plain
+Both are launched here as the hand-written CUDA kernel for dense tiles,
+``csrc/tile_spmm.cu``, through ``tile_matvec`` on a CUDA tensor (the plain
 version on a CPU tensor), on tiles built with
-``ops.block_spmm.tiles_from_arrays``.  Each case is checked against the
+``ops.block_spmm.tiles_from_arrays``, whose ``layout="auto"`` picks the
+dense layout for tiles this full.  That kernel cuts the list of tiles into
+equal ranges for its thread blocks, whatever the number of tiles per
+step, so the two cases give the same bits.  Each case is checked against the
 tool's reference formula (window gather, ``einsum("tij,tjd->tid")``, sum
 over each row block's tiles), then timed over the tool's chain of
 ``CHAIN`` dependent applications.
@@ -145,7 +148,7 @@ def chain(e: torch.Tensor, tiles: TileDeviceArrays, steps: int = CHAIN) -> torch
 
 def moved_bytes(tiles: TileDeviceArrays, d: int) -> int:
     """The tool's byte count: every tile's values and its f32 window."""
-    return tiles.num_tiles * TILE * (TILE * tiles.tile_a.element_size() + d * 4)
+    return tiles.num_tiles * TILE * (TILE * tiles.values.element_size() + d * 4)
 
 
 def timed_chain(e: torch.Tensor, tiles: TileDeviceArrays, steps: int = CHAIN):

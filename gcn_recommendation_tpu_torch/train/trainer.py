@@ -101,18 +101,17 @@ class Trainer:
 
             part = partition_tiles(g, min_fill=int(self.config.tile_min_fill))
             if part is not None:
+                tiles = to_device_tiles(
+                    part, tile_dtype=getattr(torch, self.config.tile_dtype), device=self.device)
                 print(
                     f"Graph: CUDA tile partition — {part.num_tiles} tiles "
                     f"cover {part.covered_edges:,}/{g.nnz:,} edges "
                     f"({part.covered_edges / max(g.nnz, 1) * 100:.1f}%), "
-                    f"{part.n_row_blocks} row blocks (see PERF.md)"
+                    f"{part.n_row_blocks} row blocks, {tiles.layout} layout (see PERF.md)"
                 )
                 return TiledDeviceGraph(
                     base=to_device_graph(part.residual, compute_dtype=cdtype, device=self.device),
-                    tiles=to_device_tiles(
-                        part, tile_dtype=getattr(torch, self.config.tile_dtype),
-                        device=self.device,
-                    ),
+                    tiles=tiles,
                 )
             print("Graph: tile partition empty at min_fill="
                   f"{self.config.tile_min_fill}; using the ELL path")

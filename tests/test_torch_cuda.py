@@ -7,6 +7,8 @@ has only PyTorch; there, skip the JAX-importing ``conftest.py``:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -109,10 +111,96 @@ def test_train_step_launches_the_kernel_twice_per_layer(card, bundle):
         rng = np.random.default_rng(0)
         rows = torch.from_numpy(rng.integers(0, len(bundle.train), 512)).to(card)
         neg = torch.from_numpy(rng.integers(0, bundle.num_items, 512)).to(card)
+        if tile:  # layout auto: a graph partition runs the compressed kernel
+            assert tr.graph.tiles.layout == "compressed" and tr.graph.tiles.tile_a is None
         before = block_spmm.tile_matvec.launches
         losses[tile] = tr.train_step(tr.train_users[rows], tr.train_items[rows], neg).item()
         assert block_spmm.tile_matvec.launches - before == (6 if tile else 0)
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["compressed", "dense"])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 64), (torch.bfloat16, 64), (torch.float32, 48), (torch.bfloat16, 48),
+    (torch.float32, 4), (torch.bfloat16, 20), (torch.float32, 128), (torch.bfloat16, 128),
+])
+def test_each_layouts_kernel_matches_plain_on_card(card, bundle, layout, dtype, d):
+    g = bundle.graph
+    part = partition_tiles(g, min_fill=16, tiles_per_step=8)
+    assert g.num_nodes % 128 and part is not None  # ragged last window
+    tiles = block_spmm.to_device_tiles(part, tile_dtype=dtype, device=card, layout=layout)
+    assert tiles.layout == layout and (tiles.tile_a is None) == (layout == "compressed")
+    e = torch.randn((g.num_nodes, d), generator=torch.Generator(device=card).manual_seed(d),
+                    device=card)
+    before = block_spmm.tile_matvec.launches
+    out = block_spmm.tile_matvec(e, tiles)
+    assert block_spmm.tile_matvec.launches == before + 1
+    ref = block_spmm._tile_matvec_reference(e, tiles)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 1e-5 * max(1.0, ref.abs().max().item())
+    assert err <= tol, (err, tol)
+    # deterministic: no atomics in either kernel
+    assert torch.equal(out, block_spmm.tile_matvec(e, tiles))
+
+
+def test_layouts_agree_with_each_other_on_card(card, bundle):
+    part = partition_tiles(bundle.graph, min_fill=16, tiles_per_step=8)
+    e = torch.randn((bundle.graph.num_nodes, 64), device=card)
+    outs = [block_spmm.tile_matvec(e, block_spmm.to_device_tiles(part, device=card, layout=lay))
+            for lay in ("compressed", "dense")]
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("layout", ["compressed", "dense"])
+def test_bf16_kernels_round_the_window_on_card(card, layout):
+    """bf16 tiles meet the embedding rounded to bf16: the product with the
+    window left in f32 lies far outside the limit that the kernel meets."""
+    lay = exp_block_tiles.make_layout(seed=2, n_blocks=40, d=64, m=16, r_blocks=24)
+    rows = np.repeat(np.arange(lay.r_blocks, dtype=np.int32), lay.m)
+    tiles = block_spmm.tiles_from_arrays(lay.tile_a, lay.tile_col, rows, 1, lay.r_blocks,
+                                         tile_dtype=torch.bfloat16, device=card, layout=layout)
+    e = torch.from_numpy(lay.e).to(card)
+    out = block_spmm.tile_matvec(e, tiles)
+    ref = block_spmm._tile_matvec_reference(e, tiles)
+    key = "tile_a" if layout == "dense" else "edge_w"
+    widened = dataclasses.replace(tiles, **{key: tiles.values.float()})
+    unrounded = block_spmm._tile_matvec_reference(e, widened)  # same values, f32 window
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+    assert (out - unrounded).abs().max().item() > 10 * tol
+
+
+@pytest.mark.parametrize("layout", ["compressed", "dense"])
+def test_each_layouts_wrapper_refuses_what_its_kernel_cannot_take(card, bundle, layout):
+    part = partition_tiles(bundle.graph, min_fill=16, tiles_per_step=8)
+    tiles = block_spmm.to_device_tiles(part, device=card, layout=layout)
+    n = bundle.graph.num_nodes
+    for d in (6, 132, 2):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            block_spmm.tile_matvec(torch.zeros((n, d), device=card), tiles)
+    with pytest.raises(ValueError, match="aligned"):
+        block_spmm.tile_matvec(torch.zeros((n * 8 + 1,), device=card)[1:].view(n, 8), tiles)
+    cpu_tiles = block_spmm.to_device_tiles(part, device="cpu", layout=layout)
+    with pytest.raises(ValueError, match="tiles on cpu"):
+        block_spmm.tile_matvec(torch.zeros((n, 8), device=card), cpu_tiles)
+    key = "tile_a" if layout == "dense" else "edge_w"
+    strided = torch.cat([tiles.values, tiles.values], dim=-1)[..., :: 2]
+    with pytest.raises(ValueError, match="contiguous"):
+        block_spmm.tile_matvec(torch.zeros((n, 8), device=card),
+                               dataclasses.replace(tiles, **{key: strided}))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        block_spmm.tile_matvec(torch.zeros((n, 8), device=card),
+                               dataclasses.replace(tiles, **{key: tiles.values.half()}))
+    if layout == "dense":  # a column block past the table
+        with pytest.raises(ValueError, match="past the"):
+            block_spmm.tile_matvec(torch.zeros((128, 8), device=card), tiles)
+    # a transposed (non-contiguous) embedding is copied, not refused: autograd hands such in
+    e = torch.randn((8, n), device=card).t()
+    assert not e.is_contiguous()
+    ref = block_spmm._tile_matvec_reference(e, tiles)
+    assert (block_spmm.tile_matvec(e, tiles) - ref).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("tb,dtype", [(1, torch.float32), (1, torch.bfloat16),
@@ -121,6 +209,7 @@ def test_exp_tiles_kernel_matches_plain_on_card(card, tb, dtype):
     # the experiment's width (d = 64) and tiles per row block at fewer blocks
     layout = exp_block_tiles.make_layout(seed=0, n_blocks=40, d=64, m=16, r_blocks=24)
     before = block_spmm.tile_matvec.launches
+    assert exp_block_tiles.device_tiles(layout, tb, dtype, card).layout == "dense"  # auto
     r = exp_block_tiles.run_case(layout, tb, dtype, card, chain_steps=3)
     assert block_spmm.tile_matvec.launches - before == 1 + 2 * 3
     assert r["max_abs_err"] <= r["tol"] and r["clock"] == "cuda events" and r["ms"] > 0
@@ -132,8 +221,8 @@ def test_exp_tiles_one_tile_per_step_equals_eight_on_card(card):
     one = block_spmm.tile_matvec(e, exp_block_tiles.device_tiles(layout, 1, device=card))
     eight = block_spmm.tile_matvec(e, exp_block_tiles.device_tiles(layout, 8, device=card))
     torch.cuda.synchronize()
-    scale = one.abs().max().item()
-    assert (one - eight).abs().max().item() <= 1e-5 * max(1.0, scale)
+    # the dense kernel's ranges are cut in tiles, not in steps: the same bits
+    assert torch.equal(one, eight) and one.abs().max().item() > 0.5
 
 
 @pytest.mark.parametrize("mult", [1, 8])

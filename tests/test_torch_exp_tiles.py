@@ -15,9 +15,15 @@ experiment's tile product is held against
 
 The Pallas kernels of the tool are the bodies of that kernel at TB = 1
 with a row id per tile and at TB = 8 with a row id per step.
+
+The experiment's tiles are full, so ``layout="auto"`` gives them the dense
+layout; the last tests force the compressed layout on the same tiles and
+hold it to the same references, and check that the dense kernel's host
+plan is the same at 1 and at 8 tiles per step.
 """
 
 import contextlib
+import dataclasses
 import io
 
 import jax.numpy as jnp
@@ -28,6 +34,7 @@ import torch
 from gcn_recommendation_tpu.ops import block_spmm as jbs
 from gcn_recommendation_tpu_torch.ops import block_spmm
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles as exp
+from gcn_recommendation_tpu_torch.tools import exp_tile_variants as exp_variants
 
 N_BLOCKS, D, M, R_BLOCKS = 9, 16, 8, 4
 CASES = [(1, "float32"), (1, "bfloat16"), (8, "float32"), (8, "bfloat16")]
@@ -241,3 +248,105 @@ def test_tiles_without_a_node_map_refuse_the_graph_product(layout):
     tiles = exp.device_tiles(layout, 1, torch.float32, "cpu")
     with pytest.raises(ValueError, match="no node map"):
         block_spmm.propagate_ell_tiles(torch.zeros((74, D)), g, tiles)
+
+
+# ------------------------------------------------------------ the two layouts
+
+
+def _layout_tiles(layout, tb, dtype, which):
+    rows = np.repeat(np.arange(R_BLOCKS, dtype=np.int32), M // tb)
+    return block_spmm.tiles_from_arrays(
+        layout.tile_a, layout.tile_col, rows, tb, R_BLOCKS, tile_dtype=getattr(torch, dtype),
+        device="cpu", layout=which)
+
+
+def test_layout_auto_picks_dense_on_the_experiments_tiles(layout):
+    tiles = exp.device_tiles(layout, 1, torch.float32, "cpu")
+    assert tiles.layout == "dense" and tiles.edge_w is None and tiles.plan is not None
+    assert tiles.tile_a.shape == (M * R_BLOCKS, 128, 128)
+    # the same geometry, thinned to a graph partition's fill, goes the other way
+    thin = layout.tile_a * (np.random.default_rng(1).random(layout.tile_a.shape) < 0.004)
+    rows = np.repeat(np.arange(R_BLOCKS, dtype=np.int32), M)
+    auto = block_spmm.tiles_from_arrays(thin, layout.tile_col, rows, 1, R_BLOCKS, device="cpu")
+    assert auto.layout == "compressed" and auto.tile_a is None
+    assert auto.edge_w.numel() == np.count_nonzero(thin)
+    with pytest.raises(ValueError, match="layout"):
+        block_spmm.tiles_from_arrays(thin, layout.tile_col, rows, 1, R_BLOCKS, device="cpu",
+                                     layout="sparse")
+
+
+@pytest.mark.parametrize("tb,dtype", CASES)
+def test_compressed_layout_matches_the_reference_formula(layout, tb, dtype):
+    tiles = _layout_tiles(layout, tb, dtype, "compressed")
+    assert tiles.layout == "compressed" and tiles.tile_a is None
+    assert tiles.tiles_per_step == tb and tiles.edge_w.numel() == layout.tile_a.size
+    ref = _numpy_reference(layout, dtype)
+    out = block_spmm.tile_matvec(torch.from_numpy(layout.e), tiles).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=_tol(dtype, ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compressed_layout_matches_the_pallas_kernel_in_interpret_mode(layout, dtype):
+    jt = jbs.TileDeviceArrays(
+        tile_a=jnp.asarray(layout.tile_a, dtype=getattr(jnp, dtype)),
+        tile_col=jnp.asarray(layout.tile_col),
+        step_row=jnp.asarray(np.repeat(np.arange(R_BLOCKS, dtype=np.int32), M)),
+        tile_gather_idx=jnp.zeros((0,), jnp.int32),
+        row_block_nodes=jnp.zeros((R_BLOCKS, 128), jnp.int32),
+    )
+    ref = np.asarray(jbs.tile_matvec(jnp.asarray(layout.e), jt))
+    out = block_spmm.tile_matvec(torch.from_numpy(layout.e),
+                                 _layout_tiles(layout, 1, dtype, "compressed")).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=_tol(dtype, ref))
+
+
+@pytest.mark.parametrize("which", ["dense", "compressed"])
+def test_one_tile_per_step_and_eight_hold_the_same_arrays(layout, which):
+    """The step size is a property of the TPU grid: the arrays either CUDA
+    kernel reads (the dense kernel's plan, the compressed edges) do not
+    depend on it, so one tile per step and eight give the same bits."""
+    one, eight = (_layout_tiles(layout, tb, "float32", which) for tb in (1, 8))
+    assert (one.tiles_per_step, eight.tiles_per_step) == (1, 8)
+    if which == "dense":
+        for f in dataclasses.fields(one.plan):
+            a, b = getattr(one.plan, f.name), getattr(eight.plan, f.name)
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
+        p = one.plan
+        assert p.n_blocks == min(M * R_BLOCKS, block_spmm.DENSE_BLOCKS_PER_SM
+                                 * block_spmm.DEFAULT_SM_COUNT)
+        assert torch.equal(p.list_tile, torch.arange(M * R_BLOCKS, dtype=torch.int32))
+        seg = p.segments.numpy()
+        assert seg[0, 0] == 0 and seg[-1, 1] == M * R_BLOCKS
+        np.testing.assert_array_equal(seg[1:, 0], seg[:-1, 1])  # every tile once, in order
+    else:
+        for name in ("edge_row_ptr", "edge_src", "edge_w"):
+            assert torch.equal(getattr(one, name), getattr(eight, name)), name
+    e = torch.from_numpy(layout.e)
+    assert torch.equal(block_spmm.tile_matvec(e, one), block_spmm.tile_matvec(e, eight))
+
+
+# ------------------------------------------------- the kernel-variant experiment
+
+
+@pytest.mark.parametrize("name", sorted(exp_variants.VARIANTS))
+def test_every_kernel_variant_still_applies_to_the_source(name):
+    """The variants are text edits of ``csrc/tile_spmm.cu``: each must find
+    its lines there, or the experiment would time the unchanged kernel."""
+    from gcn_recommendation_tpu_torch.kernels import _build
+
+    with open(_build.source_path("tile_spmm")) as f:
+        source = f.read()
+    edits = exp_variants.VARIANTS[name]
+    out = exp_variants.variant_source(source, edits)
+    assert (out == source) == (name == "base")
+    for old, new in edits:
+        assert old not in out or (new and old in new)
+    with pytest.raises(ValueError, match="no longer holds"):
+        exp_variants.variant_source(source, [("not a line of the kernel", "")])
+
+
+def test_kernel_variant_experiment_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the experiment would run")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        exp_variants.main()

@@ -30,7 +30,7 @@ def test_port_lists_its_modules():
               "models.lightgcn", "models.convert", "utils.checkpoint", "core.device",
               "ops.block_spmm", "graph.tiles", "data.sampler", "train.loss",
               "train.evaluate", "train.trainer", "utils.logging",
-              "models.lightgcn_fusion", "tools", "tools.exp_block_tiles",
+              "models.lightgcn_fusion", "tools", "tools.exp_block_tiles", "tools.exp_tile_variants",
               "data.synthetic", "graph.build"):
         assert f"{PKG}.{m}" in mods
 
