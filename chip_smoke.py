@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: serving, training (both model
-families), the tile experiment and row padding.
+families), the tile experiment, row padding and the HTTP serving daemon.
 
     python3 chip_smoke.py
 
@@ -11,11 +11,16 @@ fails:
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every CUDA kernel from ``gcn_recommendation_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-3. kernel check: ``quantize_rows_int8`` on the card against its plain
-   PyTorch version at the catalog shape [20000, 64] and a ragged
-   [1000, 48]; q and scales must be bit-equal.  Times are CUDA-event
-   medians over 5 windows: of 20 back-to-back eager calls (plain version,
-   ``call_ms``) or of replays of a CUDA graph of 20 launches (``ms``);
+3. kernel check: the int8 quantizer (``csrc/quant_int8.cu``) in both
+   rounding modes (``quantize_rows_int8``, stochastic; ``quantize_users_int8``,
+   nearest) and through both entry points (the lane-group kernel and the
+   first version, ``quantize_rows_int8_launch_v1``) against the plain
+   PyTorch versions at the catalog shape [20000, 64], at [2000000, 64], at
+   the largest request [1024, 64] and at ragged [1000, 48] and [37, 50]; q
+   and scales must be bit-equal.  Times are CUDA-event medians over 5
+   windows: of 20 back-to-back eager calls (plain version, ``call_ms``) or
+   of replays of a CUDA graph of 20 launches (``ms``), beside a kernel that
+   does nothing on the same grid (``floor_ms``);
 4. the serving path: the books-shaped bench bundle (72,000 nodes, ~3.03M
    adjacency nonzeros), LightGCN dim 64, 3 layers, random weights from a
    seed; ``Retriever.from_params`` with the f32 and the int8 catalog,
@@ -73,7 +78,26 @@ fails:
 9. row padding: the phase-4 LightGCN params in a model with
    ``set_row_multiple`` 8 and 48 over the padded graph give final
    embeddings within 1e-6 of the unpadded forward, on the ELL path and on
-   the tile path.
+   the tile path;
+10. the serving daemon, f32 then int8 catalog: a ``best`` checkpoint of
+   seeded weights on disk, the server built through ``cli.make_server``
+   (port 0, ``--warm_batch 64``, ``--max_coalesce 16``), then over HTTP
+   from 16 client threads of a client process: ``/health``; 200 ``/recommend`` requests of
+   1-64 users whose bodies must equal ``Retriever.recommend`` called
+   directly: 20 distinct items in descending order of their exact scores
+   (recomputed on the host), none scoring below the direct call's 20th
+   (a coalesced dispatch sums at another batch shape: 1e-6 relative), and
+   scores equal to the exact ones after the rounding to 4 digits; no seen
+   item; the
+   400 / 404 / 501 paths; a checkpoint of other weights, ``POST /reload``
+   with requests in flight (each answered wholly from the old or wholly
+   from the new weights), then answers from the new weights only;
+   ``/stats`` consistent.  Launches counted from 0 around each server:
+   the stochastic mode once per int8 build (start + reload = 2), the
+   nearest mode once per int8 dispatch, neither on the f32 server.  A
+   ``daemon: {...}`` line gives requests/s and users/s at 16 clients,
+   mean and p99 latency, the mean coalesce factor, reload seconds, first
+   against warm call latency and peak memory.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -89,10 +113,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
+from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.config import Config
 from gcn_recommendation_tpu_torch.data.sampler import (
     epoch_batches,
@@ -110,6 +137,7 @@ from gcn_recommendation_tpu_torch.ops.spmm import (
     to_device_graph_auto,
 )
 from gcn_recommendation_tpu_torch.serve import Retriever
+from gcn_recommendation_tpu_torch.server import RecommendServer
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
@@ -133,6 +161,14 @@ PAD_MULTIPLES = (8, 48)       # 8 pads only ELL bucket rows here; 48 pads every 
 SCAN_FILLS = (0.0035, 0.015, 0.06, 0.25, 1.0)   # the fill scan of the two tile kernels
 SCAN_MIN_FILLS = (64, 32, 16)                   # tile_min_fill scan of the tile trainer
 MIN_FILL_SCAN_BUDGET_S = 40.0
+QUANT_CHECK_SHAPES = ((20_000, 64), (2_000_000, 64), (1_024, 64), (1_000, 48), (37, 50))
+DAEMON_CLIENTS = 16
+DAEMON_REQUESTS = 200         # a half before the reload, a half after
+DAEMON_STRADDLE = 32          # requests in flight around the reload
+DAEMON_MAX_USERS = 64
+DAEMON_SCORE_ATOL = 0.6e-4    # bodies carry scores rounded to 4 digits: half a unit of the
+                              # last one, and the f32 noise of scores of order 0.1
+HTTP_TIMEOUT_S = 30
 KERNEL_SOURCE = {
     "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
     "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
@@ -194,47 +230,113 @@ def check(cond: bool, what: str) -> None:
     print(f"ok: {what}", flush=True)
 
 
+def _quant_v1(x, seed: int, out=None):
+    """The first version of the quantizer kernel, through its entry point
+    (nothing on a path calls it)."""
+    q, scales = quant._empty_out(x) if out is None else out
+    err = _build.load_library("quant_int8").quantize_rows_int8_launch_v1(
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), x.shape[0], x.shape[1], seed,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise SystemExit(f"chip_smoke FAILED: v1 quantizer launch, CUDA error {err}")
+    return q, scales
+
+
+def _quant_bound_ms(n: int, d: int):
+    """Least time for one quantizer call: x read once, q and scales written
+    once, against ``QUANT_OPS_PER_ELEMENT`` operations an element."""
+    nbytes = 4 * n * d + n * d + 4 * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = QUANT_OPS_PER_ELEMENT * n * d / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes
+
+
 def phase_kernel_check(dev):
-    """Bit-equality of the quantizer kernel with its plain version, and
-    its times beside the bound at the catalog shape."""
+    """Bit-equality of the quantizer kernel with its plain versions, in
+    both modes and through both entry points, and its times beside the
+    bound, the first version's and the launch floor."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    record = None
-    for n, d, seed in ((20_000, 64, 0), (1_000, 48, 1234)):
+    lib = _build.load_library("quant_int8")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    record = {
+        "name": "quantize_rows_int8",
+        "route": "cuda",
+        "source": "gcn_recommendation_tpu_torch/csrc/quant_int8.cu",
+        "replaces": "gcn_recommendation_tpu/ops/quant.py:35",
+        "library_ms": None,  # no PyTorch call does stochastic int8 rounding
+    }
+    for n, d in QUANT_CHECK_SHAPES:
         x = torch.randn((n, d), generator=gen, device=dev) * 0.05
-        q_k, s_k = quant.quantize_rows_int8(x, seed=seed)
+        seed = 1234 + n
         q_p, s_p = quant._quantize_rows_int8_reference(x, seed=seed)
+        got = {"stochastic": quant.quantize_rows_int8(x, seed=seed),
+               "stochastic, first version": _quant_v1(x, seed)}
         torch.cuda.synchronize()
-        err = max(
-            (q_k.int() - q_p.int()).abs().max().item(),
-            (s_k - s_p).abs().max().item(),
-        )
-        check(
-            torch.equal(q_k, q_p) and torch.equal(s_k, s_p),
-            f"quantize_rows_int8 kernel bit-equal to plain at [{n}, {d}] "
-            f"(max abs diff {err})",
-        )
-        if record is None:  # the catalog shape of the path
-            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed))
-            call_ms = _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed))
-            plain_ms = _cuda_ms(lambda: quant._quantize_rows_int8_reference(x, seed=seed))
-            nbytes = 4 * n * d + n * d + 4 * n
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = QUANT_OPS_PER_ELEMENT * n * d / FP32_OPS_PER_S * 1e3
-            record = {
-                "name": "quantize_rows_int8",
-                "route": "cuda",
-                "source": "gcn_recommendation_tpu_torch/csrc/quant_int8.cu",
-                "replaces": "gcn_recommendation_tpu/ops/quant.py:35",
+        err = 0.0
+        for name, (q_k, s_k) in got.items():
+            err = max(err, (q_k.int() - q_p.int()).abs().max().item(),
+                      (s_k - s_p).abs().max().item())
+            check(torch.equal(q_k, q_p) and torch.equal(s_k, s_p),
+                  f"quantizer kernel ({name}) bit-equal to plain at [{n}, {d}]")
+        del q_p, s_p, got
+        q_p, s_p = quant._quantize_users_int8_reference(x)
+        q_k, s_k = quant.quantize_users_int8(x)
+        torch.cuda.synchronize()
+        err = max(err, (q_k.int() - q_p.int()).abs().max().item(),
+                  (s_k - s_p).abs().max().item())
+        check(torch.equal(q_k, q_p) and torch.equal(s_k, s_p),
+              f"quantizer kernel (nearest) bit-equal to plain at [{n}, {d}]")
+        del q_p, s_p, q_k, s_k
+
+        out = quant._empty_out(x)
+        bound_ms, bound_by, nbytes = _quant_bound_ms(n, d)
+        if (n, d) == (20_000, 64):  # the catalog shape of the path
+            # the floor: a kernel that does nothing on the same grid (32 rows a block
+            # of 256 threads at d = 64); the stream is looked up inside the call,
+            # which runs under the graph's capture stream
+            blocks = min(-(-n // 32), 8 * sms)
+            record.update({
                 "shape": [n, d],
                 "max_abs_err": err,
                 "max_abs_diff_vs_plain": err,
-                "ms": ms,            # on the card (CUDA graph replay)
-                "call_ms": call_ms,  # one eager call in a loop: host-bound when short
-                "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,  # no PyTorch call does stochastic int8 rounding
-            }
+                # on the card (CUDA graph replay), into the caller's buffers
+                "ms": _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                # one eager call in a loop: host-bound when short
+                "call_ms": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
+                "call_ms_out": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                "plain_ms": _cuda_ms(
+                    lambda: quant._quantize_rows_int8_reference(x, seed=seed)),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "v1_ms": _device_ms(lambda: _quant_v1(x, seed, out)),
+                "floor_ms": _device_ms(lambda: lib.quant_int8_empty_launch(
+                    blocks, 256, torch.cuda.current_stream().cuda_stream)),
+                "floor_grid": [blocks, 256],
+            })
+        elif (n, d) == (2_000_000, 64):  # where the bytes decide, not the floor
+            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
+            record.update({
+                "shape_large": [n, d],
+                "ms_large": ms,
+                "call_ms_large": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                "v1_ms_large": _device_ms(lambda: _quant_v1(x, seed, out)),
+                "nearest_ms_large": _device_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                "bound_ms_large": bound_ms,
+                "gb_per_s_large": nbytes / ms / 1e6,
+                "share_of_bound_large": bound_ms / ms,
+            })
+        elif (n, d) == (1_024, 64):  # the largest request, nearest mode
+            record.update({
+                "shape_nearest": [n, d],
+                "nearest_ms": _device_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                "nearest_call_ms": _cuda_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                # the eager PyTorch launches that the nearest mode replaces
+                "nearest_plain_ms": _cuda_ms(lambda: quant._quantize_users_int8_reference(x)),
+                "nearest_bound_ms": bound_ms,
+                "v1_ms_request_shape": _device_ms(lambda: _quant_v1(x, seed, out)),
+            })
+        del x, out
+    print("quantizer: " + json.dumps(record), flush=True)
     return record
 
 
@@ -273,6 +375,31 @@ def books_bundle():
     return bundle, bundle_s
 
 
+def _user_quantizer_ab(rq, requests):
+    """Measurement only: an int8 request with its users quantized by the
+    kernel's nearest mode (one launch) against the same request with the
+    plain PyTorch lines in its place (eight eager launches), in turns
+    (kernel, eager, eager, kernel) at 1 and at 64 users."""
+    kernel = quant.quantize_users_int8
+
+    def eager(x, out=None):
+        return quant._write_out(quant._quantize_users_int8_reference(x), x, out)
+
+    out = {}
+    try:
+        for u in (requests[0], requests[2]):
+            times = {"kernel": [], "eager": []}
+            for name, fn in (("kernel", kernel), ("eager", eager), ("eager", eager),
+                             ("kernel", kernel)):
+                quant.quantize_users_int8 = fn
+                times[name].append(_host_ms(lambda: rq.recommend(u, k=K), reps=30))
+            for name, t in times.items():
+                out[f"int8_b{len(u)}_{name}_user_quantizer_ms"] = statistics.fmean(t)
+    finally:
+        quant.quantize_users_int8 = kernel
+    return out
+
+
 def phase_path(dev, bundle, bundle_s):
     """Drive the serving path and check it; returns the launch counts
     of the main path."""
@@ -288,7 +415,9 @@ def phase_path(dev, bundle, bundle_s):
     requests = [rng.choice(active, n, replace=False).astype(np.int32) for n in REQUEST_SIZES]
 
     # --- the main path: counts from 0, read right after ---
+    torch.cuda.reset_peak_memory_stats()
     quant.quantize_rows_int8.launches = 0
+    quant.quantize_users_int8.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rf = Retriever.from_params(model, params, bundle)
@@ -306,11 +435,17 @@ def phase_path(dev, bundle, bundle_s):
         piped = r.recommend_pipelined(requests, k=K)
         many = r.recommend_many(requests, k=K)
         results[name] = (single, piped, many)
-    launches = {"quantize_rows_int8": quant.quantize_rows_int8.launches}
+    launches = {"quantize_rows_int8": quant.quantize_rows_int8.launches,
+                "quantize_users_int8": quant.quantize_users_int8.launches}
     # --- end of the main path ---
 
     check(launches_f32 == 0, "f32 load launches no quantizer")
-    check(launches_int8 >= 1, f"int8 load launched the quantizer ({launches_int8}x)")
+    check(launches_int8 == 1, f"int8 load launched the quantizer ({launches_int8}x)")
+    # recommend and recommend_pipelined dispatch once a request, recommend_many once in all
+    want_nearest = 2 * len(requests) + 1
+    check(launches["quantize_users_int8"] == want_nearest,
+          f"int8 requests launched the nearest mode {launches['quantize_users_int8']}x = "
+          f"1 per dispatch ({want_nearest})")
 
     for name, (single, piped, many) in results.items():
         for u, (v, i) in zip(requests, single):
@@ -347,6 +482,7 @@ def phase_path(dev, bundle, bundle_s):
         latency[f"{name}_many_ms"] = _host_ms(lambda: r.recommend_many(requests, k=K))
         latency[f"{name}_pipelined_ms"] = _host_ms(
             lambda: r.recommend_pipelined(requests, k=K))
+    latency.update(_user_quantizer_ab(rq, requests))
     meas = {
         "bundle_host_s": bundle_s,
         "load_f32_ms": load_f32_ms,
@@ -1098,6 +1234,311 @@ def phase_padding(dev, bundle):
                   f"unpadded one (max abs diff {diff:.3g})")
 
 
+def _http(port: int, path: str, payload=None):
+    """(status, body, seconds) of one call to the daemon on localhost;
+    POST when a payload is given."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json"}, method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t0
+
+
+class _Reference:
+    """One set of weights' exact scores, on the host: what a daemon's
+    answer is held against, whatever batch its dispatch coalesced."""
+
+    def __init__(self, retriever, requests):
+        r = self.retriever = retriever
+        self.user_emb = r.user_emb.cpu()
+        if r.quantized:
+            d = self.user_emb.shape[1]  # the table is padded to multiples of 8
+            self.item_q = r.item_q[: r.num_items, :d].cpu().numpy().astype(np.int64)
+            self.item_scale = r.item_scale[:, 0].cpu().numpy()
+        else:
+            self.item_emb = r.item_emb.double().cpu().numpy()
+        # Retriever.recommend called directly: its k-th score is the bar
+        self.direct = [r.recommend(u, k=K) for u in requests]
+
+    def scores(self, users, items):
+        """[n, k] scores of ``items`` for ``users`` as the retriever computes
+        them: float64 dot products of the f32 tables, or the int8 path's
+        exact integer products times the two f32 scales (in its order)."""
+        u = self.user_emb[torch.from_numpy(np.asarray(users, np.int64))]
+        if not self.retriever.quantized:
+            return np.einsum("nd,nkd->nk", u.double().numpy(), self.item_emb[items])
+        u_q, u_scale = quant._quantize_users_int8_reference(u)
+        s32 = np.einsum("nd,nkd->nk", u_q.numpy().astype(np.int64), self.item_q[items])
+        return (s32.astype(np.float32) * u_scale.numpy()) * self.item_scale[items]
+
+    def holds(self, i, users, body) -> bool:
+        """Is ``body`` a right answer to request ``i``: k distinct items in
+        descending order of their exact scores, each scoring at least the
+        direct call's k-th (f32 sums in another order: 1e-6 relative), and
+        the body's scores equal to the exact ones after the rounding to 4
+        digits (half a unit, and the f32 noise)."""
+        got, items = np.asarray(body["scores"]), np.asarray(body["items"])
+        direct_scores, direct_items = self.direct[i]
+        if got.shape != direct_scores.shape or items.shape != direct_items.shape:
+            return False
+        if any(len(set(row)) != len(row) for row in items.tolist()):
+            return False
+        exact = self.scores(users, items)
+        eps = 1e-6 * max(1.0, float(np.abs(direct_scores).max()))
+        return bool(np.abs(got - exact).max() <= DAEMON_SCORE_ATOL
+                    and (exact.min(axis=1) >= direct_scores[:, -1] - eps).all()
+                    and (np.diff(exact, axis=1) <= eps).all())
+
+
+# The daemon's clients: a process of its own (so that their JSON work does
+# not compete with the server's threads for one interpreter lock), stdlib
+# only.  It reads a job from stdin, {"port", "timeout", "waves": [{"workers",
+# "calls": [[path, payload or null], ...]}, ...]}, runs each wave's calls
+# from a pool of that many threads, and writes [{"seconds", "results":
+# [[status, body, seconds], ...]}, ...] to stdout.
+_CLIENT_CODE = r"""
+import concurrent.futures, json, sys, time, urllib.error, urllib.request
+job = json.load(sys.stdin)
+def call(c):
+    path, payload = c
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (job["port"], path), data=data,
+        headers={"Content-Type": "application/json"}, method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=job["timeout"]) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t0
+out = []
+for wave in job["waves"]:
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(wave["workers"]) as pool:
+        results = list(pool.map(call, wave["calls"]))
+    out.append({"seconds": time.perf_counter() - t0, "results": results})
+json.dump(out, sys.stdout)
+"""
+
+
+def _run_clients(port: int, waves):
+    """Run ``waves`` in the client process; returns its output."""
+    job = {"port": port, "timeout": HTTP_TIMEOUT_S, "waves": waves}
+    res = subprocess.run([sys.executable, "-c", _CLIENT_CODE], input=json.dumps(job),
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"chip_smoke FAILED: the daemon's client process: {res.stderr[-2000:]}")
+    return json.loads(res.stdout)
+
+
+def _daemon_catalog(dev, bundle, model, params_v1, params_v2, int8: bool):
+    """One daemon, one catalog type; returns its measurements and its
+    launch counts."""
+    name = "int8" if int8 else "f32"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_daemon_{name}_")
+    rng = np.random.default_rng(10 + int8)
+    active = np.unique(bundle.train.user_idx)
+    n_total = DAEMON_REQUESTS + DAEMON_STRADDLE
+    requests = [rng.choice(active, int(rng.integers(1, DAEMON_MAX_USERS + 1)), replace=False)
+                .astype(np.int32) for _ in range(n_total)]
+
+    # the direct answers, from retrievers of their own, before any count is zeroed
+    refs, first_call_ms, warm_call_ms = [], None, None
+    for params in (params_v1, params_v2):
+        r = Retriever.from_params(model, params, bundle, quantize=int8)
+        if first_call_ms is None:  # the first call of a new retriever at a shape, then warm
+            users64 = active[:64].astype(np.int32)
+            t0 = time.perf_counter()
+            r.recommend(users64, k=K)
+            first_call_ms = (time.perf_counter() - t0) * 1e3
+            warm_call_ms = _host_ms(lambda: r.recommend(users64, k=K))
+        refs.append(_Reference(r, requests))
+    f_ptr, f_items = membership_arrays(
+        bundle.train.user_idx, bundle.train.item_idx, bundle.num_users)
+    seen = [[set(f_items[f_ptr[u] : f_ptr[u + 1]].tolist()) for u in users]
+            for users in requests]
+
+    def right(answer, version) -> bool:
+        i, (status, body, _) = answer
+        return status == 200 and refs[version].holds(i, requests[i], body)
+
+    def ask(i):
+        return ["/recommend", {"users": requests[i].tolist(), "k": K}]
+
+    half = DAEMON_REQUESTS // 2
+    straddle_idx = list(range(DAEMON_REQUESTS, n_total))
+    probes = [({"users": []}, "/recommend", 400),
+              ({"users": [bundle.num_users + 5]}, "/recommend", 400),
+              ({"users": [0], "k": 0}, "/recommend", 400),
+              ({}, "/recommend", 400),
+              ({"users": list(range(8193))}, "/recommend", 400),
+              ({"users": [0]}, "/nope", 404)]
+    waves = [
+        {"workers": 1, "calls": [["/health", None], ask(0)]},
+        {"workers": DAEMON_CLIENTS, "calls": [ask(i) for i in range(half)]},
+        # requests in flight around the reload: a pool of one thread more
+        {"workers": DAEMON_CLIENTS + 1, "calls":
+            [ask(i) for i in straddle_idx[: DAEMON_STRADDLE // 2]] + [["/reload", {}]]
+            + [ask(i) for i in straddle_idx[DAEMON_STRADDLE // 2:]]},
+        {"workers": DAEMON_CLIENTS, "calls": [ask(i) for i in range(half, DAEMON_REQUESTS)]},
+        {"workers": 1, "calls": [["/stats", None]]},
+        {"workers": 1, "calls": [[path, payload] for payload, path, _ in probes]},
+        {"workers": 1, "calls": [["/stats", None]]},
+    ]
+
+    ckpt.save_params(tmp, params_v1)
+    args = cli.build_parser().parse_args(
+        ["serve", "--model_path", tmp, "--port", "0", "--warm_batch", "64",
+         "--max_coalesce", "16"] + (["--int8"] if int8 else []))
+    config = Config(embedding_dim=64, n_layers=3)
+
+    # --- the main path: counts from 0, read right after ---
+    torch.cuda.reset_peak_memory_stats()
+    quant.quantize_rows_int8.launches = 0
+    quant.quantize_users_int8.launches = 0
+    t0 = time.perf_counter()
+    server = cli.make_server(config, args, bundle, model, dev)
+    server.start_background()
+    try:
+        start_s = time.perf_counter() - t0
+        ladder = 5  # m = 1, 2, 4, 8, 16
+        deadline = time.perf_counter() + 60
+        warm = {}
+        while time.perf_counter() < deadline:
+            warm = _http(server.port, "/stats")[1]
+            if warm["warm_dispatches"] + warm["warm_failures"] >= ladder:
+                break
+            time.sleep(0.02)
+        warm_s = time.perf_counter() - t0 - start_s
+        # other weights land on disk; the server holds the old ones until /reload
+        ckpt.save_params(tmp, params_v2)
+        out = _run_clients(server.port, waves)
+        torch.cuda.synchronize()
+        launches = {"stochastic": quant.quantize_rows_int8.launches,
+                    "nearest": quant.quantize_users_int8.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        server.shutdown()
+    # --- end of the main path ---
+
+    check(warm["warm_dispatches"] == ladder and warm["warm_failures"] == 0,
+          f"daemon {name}: the warm ladder ran {ladder} dispatches, none failed")
+    (health, first), before, straddle, after = (
+        out[0]["results"], list(zip(range(half), out[1]["results"])),
+        out[2]["results"], list(zip(range(half, DAEMON_REQUESTS), out[3]["results"])))
+    check(health[0] == 200 and health[1] == {"status": "ok"}, f"daemon {name}: /health")
+    check(right((0, first), 0), f"daemon {name}: the first request after the warm ladder is right")
+    reload_status, reload_body, reload_http_s = straddle.pop(DAEMON_STRADDLE // 2)
+    straddle = list(zip(straddle_idx, straddle))
+    check(reload_status == 200 and reload_body["status"] == "reloaded",
+          f"daemon {name}: POST /reload answered {reload_status} {reload_body}")
+    for label, answers, version in (("before the reload", before, 0),
+                                    ("after the reload", after, 1)):
+        check(all(right(a, version) for a in answers),
+              f"daemon {name}: {len(answers)} answers {label} equal Retriever.recommend "
+              f"with the {'new' if version else 'old'} weights")
+        other = sum(right(a, 1 - version) for a in answers)
+        check(other == 0, f"daemon {name}: none of them is right for the other weights")
+    sides = [(right(a, 0), right(a, 1)) for a in straddle]
+    check(len(sides) == DAEMON_STRADDLE and all(a != b for a, b in sides),
+          f"daemon {name}: each of {DAEMON_STRADDLE} requests in flight around the reload "
+          f"was answered wholly from one set of weights ({sum(a for a, _ in sides)} old, "
+          f"{sum(b for _, b in sides)} new)")
+    everything = before + after + straddle
+    check(all(not (set(row) & seen[i][j])
+              for i, (_, bd, _) in everything for j, row in enumerate(bd["items"])),
+          f"daemon {name}: no seen item in {len(everything)} answers")
+    check(all(np.isfinite(np.asarray(bd["scores"])).all()
+              and np.asarray(bd["scores"]).shape == (len(requests[i]), K)
+              for i, (_, bd, _) in everything),
+          f"daemon {name}: finite [users, {K}] scores in every answer")
+    got = [status for status, _, _ in out[5]["results"]]
+    check(got == [w for _, _, w in probes], f"daemon {name}: error paths answer {got}")
+
+    # a server without a reload source answers 501
+    bare = RecommendServer(refs[0].retriever, bundle.num_users, port=0)
+    bare.start_background()
+    try:
+        status = _http(bare.port, "/reload", {})[0]
+    finally:
+        bare.shutdown()
+    check(status == 501, f"daemon {name}: /reload without a reload source answers {status}")
+
+    stats, final = out[4]["results"][0][1], out[6]["results"][0][1]
+    n_ok = 1 + DAEMON_REQUESTS + DAEMON_STRADDLE
+    check(stats["requests"] == n_ok and final["requests"] == n_ok
+          and stats["dispatches"] <= stats["requests"] and stats["reloads"] == 1
+          and stats["warm_failures"] == 0 and stats["abandoned"] == 0
+          and stats["coalesced_requests"] == stats["requests"]
+          and stats["users_served"] == len(requests[0]) + sum(len(u) for u in requests),
+          f"daemon {name}: /stats consistent ({json.dumps(stats)})")
+    if int8:
+        # one build at the start and one at the reload; one nearest launch for the
+        # request make_server answers itself, one per warm and per served dispatch
+        dispatches = 1 + stats["warm_dispatches"] + stats["dispatches"]
+        check(launches["stochastic"] == 2,
+              f"daemon int8: the stochastic mode launched {launches['stochastic']}x = "
+              f"1 per catalog build (start + reload)")
+        check(launches["nearest"] == dispatches,
+              f"daemon int8: the nearest mode launched {launches['nearest']}x = 1 per dispatch "
+              f"({stats['dispatches']} served + {stats['warm_dispatches']} warm + 1 at start)")
+    else:
+        check(launches == {"stochastic": 0, "nearest": 0},
+              f"daemon f32: no quantizer launch ({launches})")
+
+    lat_ms = sorted(t * 1e3 for _, (_, _, t) in before + after)
+    window_s = out[1]["seconds"] + out[3]["seconds"]
+    return {
+        "catalog": name,
+        "clients": DAEMON_CLIENTS,
+        "requests": DAEMON_REQUESTS,
+        "requests_per_s": DAEMON_REQUESTS / window_s,
+        "users_per_s": sum(len(requests[i]) for i in range(DAEMON_REQUESTS)) / window_s,
+        "latency_mean_ms": statistics.fmean(lat_ms),
+        "latency_p50_ms": lat_ms[len(lat_ms) // 2],
+        "latency_p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+        "latency_max_ms": lat_ms[-1],
+        "server_mean_latency_ms": stats["mean_latency_ms"],
+        "coalesce_factor": stats["coalesced_requests"] / stats["dispatches"],
+        "dispatches": stats["dispatches"],
+        "make_server_s": start_s,
+        "warm_ladder_s": warm_s,
+        "reload_s": reload_body["seconds"],
+        "reload_http_s": reload_http_s,
+        "first_http_request_ms": first[2] * 1e3,
+        "retriever_first_call_ms": first_call_ms,
+        "retriever_warm_call_ms": warm_call_ms,
+        "peak_mem_gib": peak_gib,
+        "launches": launches,
+    }
+
+
+def phase_daemon(dev, bundle):
+    """Drive the serving daemon through ``cli.make_server`` over HTTP, with
+    the f32 and then the int8 catalog; returns the quantizer's launches on
+    the int8 daemon's path."""
+    cfg = Config(embedding_dim=64, n_layers=3)
+    model = get_model("LightGCN")(
+        bundle.num_users, bundle.num_items, bundle.num_brands, cfg, device=dev)
+    # seeded weights times 32 (exact): top scores of order 0.1, so that the
+    # bodies' 4 digits carry three of them
+    versions = [{k: v * 32.0 for k, v in
+                 model.init(torch.Generator().manual_seed(seed)).items()} for seed in (42, 43)]
+    out = {}
+    for int8 in (False, True):
+        meas = _daemon_catalog(dev, bundle, model, versions[0], versions[1], int8)
+        out[meas["catalog"]] = meas
+    print("daemon: " + json.dumps(out), flush=True)
+    return out["int8"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -1127,9 +1568,15 @@ def main() -> int:
     x1_record, x2_record = phase_exp_tiles(dev)
     fusion_launches = phase_fusion(dev, bundle, step_ms)
     phase_padding(dev, bundle)
+    daemon_launches = phase_daemon(dev, bundle)
 
-    # launches of each main path, read right after it was driven
-    quant_record["launches"] = serve_launches["quantize_rows_int8"]
+    # launches of each main path, read right after it was driven: both modes of
+    # the quantizer on the int8 daemon's path, then the earlier paths' counts
+    quant_record["launches"] = daemon_launches["stochastic"] + daemon_launches["nearest"]
+    quant_record["launches_daemon_stochastic"] = daemon_launches["stochastic"]
+    quant_record["launches_daemon_nearest"] = daemon_launches["nearest"]
+    quant_record["launches_recommend_path"] = serve_launches["quantize_rows_int8"]
+    quant_record["launches_recommend_path_nearest"] = serve_launches["quantize_users_int8"]
     quant_record["launches_fusion_path"] = fusion_launches["quantize_rows_int8"]
     tile_record["launches"] = train_launches["tile_matvec"]
     tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]

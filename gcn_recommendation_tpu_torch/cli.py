@@ -1,8 +1,12 @@
-"""Command-line entry point of the port: ``train``, ``test`` and ``recommend``.
+"""Command-line entry point of the port: ``prepare``, ``train``, ``test``,
+``recommend`` and ``serve``.
 
 Counterpart of ``gcn_recommendation_tpu/cli.py``'s modes of the same
 names, with the same output lines:
 
+    python -m gcn_recommendation_tpu_torch prepare --recipe synthetic \
+        --num_users 400 --num_items 300 --output_dir DIR   (or a dataset
+        recipe with --review_path / --meta_path; needs pandas, no device)
     python -m gcn_recommendation_tpu_torch train --processed_dir DIR \
         [--model_name LightGCN_Fusion [--fusion_id_init]] \
         [--epochs 150] [--batch_size 2048] [--resume] \
@@ -11,6 +15,14 @@ names, with the same output lines:
     python -m gcn_recommendation_tpu_torch recommend --processed_dir DIR \
         --model_path CKPT_DIR [--users 3,7] [--k 20] [--int8] \
         [--include_seen] [--device cpu]
+    python -m gcn_recommendation_tpu_torch serve --processed_dir DIR \
+        [--model_path CKPT_DIR] [--int8] [--host 127.0.0.1] [--port 8000] \
+        [--max_coalesce 16] [--max_request_users 8192] [--warm_batch 0] \
+        [--device cpu]      (the HTTP daemon of server.py)
+
+``--profile_dir DIR`` (every mode but ``prepare``) writes one
+``torch.profiler`` Chrome trace per training epoch under DIR; it is the
+same as setting ``GCN_TPU_TRACE_DIR``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Checkpoints are the
 port's own (``utils/checkpoint.py``): ``train`` writes ``best.pt`` and
@@ -54,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Root of exp/ outputs (checkpoints + results).")
         sp.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
+        sp.add_argument("--profile_dir", type=str, default=None,
+                        help="Write torch.profiler traces (one per epoch) under "
+                             "this dir; equivalent to setting GCN_TPU_TRACE_DIR.")
         sp.add_argument("--device", type=str, default=None,
                         help="'cuda' (default) or 'cpu'.")
 
@@ -100,12 +115,107 @@ def build_parser() -> argparse.ArgumentParser:
                          "stochastic-rounding quantizer on the card).")
     rc.add_argument("--include_seen", action="store_true",
                     help="Do not filter the user's train-seen items.")
+
+    sv = sub.add_parser("serve",
+                        help="Run the HTTP serving daemon (server.py): "
+                             "micro-batched top-k over a trained checkpoint.")
+    add_common(sv)
+    sv.add_argument("--model_path", type=str, default=None,
+                    help="Checkpoint dir (default: the train-mode location).")
+    sv.add_argument("--int8", action="store_true",
+                    help="Serve from the int8-quantized item catalog.")
+    sv.add_argument("--host", type=str, default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000,
+                    help="TCP port (0 = pick a free one and print it).")
+    sv.add_argument("--max_coalesce", type=int, default=16,
+                    help="Max queued requests coalesced into one device dispatch.")
+    sv.add_argument("--max_request_users", type=int, default=8192,
+                    help="Reject /recommend requests with more users than "
+                         "this (400) — protects the single dispatcher "
+                         "thread from one oversized device batch.")
+    sv.add_argument("--warm_batch", type=int, default=0,
+                    help="Dispatch the coalesce ladder at startup with dummy "
+                         "requests of this many users (0 = off), so that the "
+                         "first real request of a shape does not pay for "
+                         "handles, workspaces and buffers; set this to your "
+                         "typical request size in production.")
+
+    pr = sub.add_parser("prepare", help="Offline data preparation (ETL).")
+    pr.add_argument("--recipe", type=str, required=True,
+                    help="One of: amazon_books, amazon_books_emb, "
+                         "amazon_books_senti, amazon_sport_emb, steam_emb, synthetic")
+    pr.add_argument("--core", type=int, default=None, help="K-core threshold.")
+    pr.add_argument("--review_path", type=str, default=None)
+    pr.add_argument("--meta_path", type=str, default=None)
+    pr.add_argument("--output_dir", type=str, default=None)
+    # synthetic-recipe knobs
+    pr.add_argument("--num_users", type=int, default=10000)
+    pr.add_argument("--num_items", type=int, default=5000)
+    pr.add_argument("--num_brands", type=int, default=200)
+    pr.add_argument("--mean_degree", type=float, default=25.0)
+    pr.add_argument("--embedding_dim", type=int, default=None)
+    pr.add_argument("--style", type=str, default="popularity",
+                    choices=["popularity", "latent"],
+                    help="Synthetic data flavor (latent = learnable structure).")
+    # latent-style regime knobs (see data/synthetic.py: temperature/dim set
+    # how predictable taste is; emb_noise derives informative content
+    # embeddings from the item factors; brand_style=latent clusters brands
+    # in taste space)
+    pr.add_argument("--latent_dim", type=int, default=16)
+    pr.add_argument("--temperature", type=float, default=0.35)
+    pr.add_argument("--pop_scale", type=float, default=0.5,
+                    help="Popularity-bias scale (latent style) — high values "
+                         "concentrate taste on globally popular items "
+                         "(the dense steam-like regime).")
+    pr.add_argument("--emb_noise", type=float, default=None,
+                    help="If set (latent style), item_embeddings.npy is a "
+                         "noisy projection of the true item factors instead "
+                         "of pure noise.")
+    pr.add_argument("--brand_style", type=str, default="random",
+                    choices=["random", "latent"])
+    # curve-shape knobs (they reproduce the reference's rating-rank
+    # split and late-climb training curves — data/synthetic.py)
+    pr.add_argument("--split", type=str, default="random",
+                    choices=["random", "rank"],
+                    help="Leave-one-out mode: 'rank' holds out each user's "
+                         "highest realized-preference item (the reference "
+                         "recipes' rating-rank protocol).")
+    pr.add_argument("--pop_df", type=float, default=None,
+                    help="Student-t df for heavy-tailed popularity logits.")
+    pr.add_argument("--pop_zipf", type=float, default=None,
+                    help="Exact-Zipf popularity exponent (overrides "
+                         "pop_df/pop_scale's distribution).")
+    pr.add_argument("--deg_sigma", type=float, default=0.5,
+                    help="Lognormal sigma of per-user degrees.")
+    pr.add_argument("--spectrum", type=float, default=0.0,
+                    help="Power-law decay of taste-factor variances.")
+    pr.add_argument("--rank_key", type=str, default="full",
+                    choices=["full", "taste"],
+                    help="Rank-split ordering key: 'taste' ranks by the "
+                         "taste score alone (rating-rank analogue; "
+                         "popularity excluded), 'full' by the sampling "
+                         "key.")
+    pr.add_argument("--taste_style", type=str, default="gaussian",
+                    choices=["gaussian", "cluster"],
+                    help="Factor-loading distribution: 'cluster' gives "
+                         "community-structured interactions (latent_dim = "
+                         "community count) - the real-co-purchase curve-"
+                         "shape mechanism, see REGIMES.md.")
+    pr.add_argument("--clusters_per_user", type=int, default=3)
+    pr.add_argument("--emb_style", type=str, default="informative",
+                    choices=["informative", "mislead"],
+                    help="'mislead' writes content embeddings that "
+                         "conflict with taste (permuted factors).")
+    pr.add_argument("--seed", type=int, default=42)
     return p
 
 
 def _make_config(args):
     from gcn_recommendation_tpu_torch.config import Config
 
+    if args.profile_dir:
+        # utils/profiling.trace picks this up around every training epoch
+        os.environ["GCN_TPU_TRACE_DIR"] = args.profile_dir
     kwargs = dict(
         model_name=args.model_name,
         dataset=args.dataset,
@@ -265,9 +375,62 @@ def run_recommend(args) -> int:
     return 0
 
 
+def make_server(config, args, bundle, model, device):
+    """The daemon over loaded data: restore the best checkpoint, build the
+    ``Retriever`` (``args.int8``: the int8 catalog), answer one request so
+    that the first real one finds the device set up, and return the
+    ``RecommendServer`` (not yet serving), whose ``POST /reload`` reads
+    the checkpoint from disk again and rebuilds the retriever."""
+    from gcn_recommendation_tpu_torch.serve import Retriever
+    from gcn_recommendation_tpu_torch.server import RecommendServer
+
+    def build_retriever():
+        """Also the /reload target.  It runs on the server's dispatcher
+        thread, which has its own grad mode and current device: the
+        checkpoint is mapped to the serving device here, and
+        ``Retriever.from_params`` brings its own ``no_grad``."""
+        params = _restore_best_params(config, args, device)
+        return Retriever.from_params(model, params, bundle, quantize=args.int8)
+
+    retriever = build_retriever()
+    retriever.recommend(np.zeros(1, np.int32), k=config.top_k)
+    return RecommendServer(
+        retriever, bundle.num_users, host=args.host, port=args.port,
+        max_coalesce=args.max_coalesce,
+        max_request_users=args.max_request_users,
+        reload_fn=build_retriever,
+        warm=(args.warm_batch, config.top_k) if args.warm_batch else None,
+    )
+
+
+def run_serve(args) -> int:
+    """Serving daemon entry: checkpoint -> Retriever -> HTTP loop."""
+    from gcn_recommendation_tpu_torch.core.device import resolve_device
+
+    config = _make_config(args)
+    device = resolve_device(args.device)
+    bundle, model = _load_everything(config, device)
+    server = make_server(config, args, bundle, model, device)
+    print(f"serving on http://{args.host}:{server.port} "
+          f"({'int8' if args.int8 else 'f32'} catalog, "
+          f"max_coalesce={args.max_coalesce})", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def run_prepare(args) -> int:
+    from gcn_recommendation_tpu_torch.data import prepare
+
+    return prepare.run_recipe(args)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    modes = {"train": run_train, "test": run_test, "recommend": run_recommend}
+    modes = {"train": run_train, "test": run_test, "recommend": run_recommend,
+             "serve": run_serve, "prepare": run_prepare}
     return modes[args.mode](args)
 
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, List
 
@@ -33,10 +34,20 @@ NVCC_FLAGS = [
 # name -> (argtypes, restype) of the launcher
 _SIGNATURES = {
     "quant_int8": {
+        # x, q, scales, n, d, q_stride, mode, seed, stream
         "quantize_rows_int8_launch": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_uint32, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "quantize_rows_int8_launch_v1": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p],
             ctypes.c_int,
+        ),
+        "quant_int8_empty_launch": (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int,
         ),
     },
     "tile_spmm": {
@@ -62,6 +73,9 @@ _SIGNATURES = {
 KERNEL_SOURCES = tuple(sorted(_SIGNATURES))
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# a serving daemon's dispatcher thread and its main thread may both reach a
+# first use: one of them builds and loads, the other waits and finds it
+_load_lock = threading.Lock()
 # compiler output of each build in this process (ptxas register report)
 build_logs: Dict[str, str] = {}
 
@@ -129,12 +143,16 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (building it if needed),
     with the launchers' argument types declared."""
     lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(library_path(name))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = restype
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _loaded[name] = lib
     return lib

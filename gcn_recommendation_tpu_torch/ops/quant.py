@@ -8,8 +8,13 @@ PyTorch counterpart of ``gcn_recommendation_tpu/ops/quant.py``.
   ``gcn_recommendation_tpu/ops/quant.py::_quant_kernel``); on a CPU
   tensor it runs the plain PyTorch version of the same arithmetic, so
   the CPU and the card compute the same function bit for bit.
+* ``quantize_users_int8`` — the same kernel's round-to-nearest mode:
+  the user-side quantizer of ``quantized_topk_scores``, one launch per
+  int8 request on the card.
 * ``quantized_topk_scores`` — int8 x int8 -> int32 scores, per-row
-  rescale, seen-item masking and top-k.
+  rescale, seen-item masking and top-k.  The item table is padded for
+  the int8 product once (``pad_int8_table``), the user codes are written
+  by the kernel straight into a padded buffer (``alloc_user_buffers``).
 
 Random bits.  The TPU kernel draws from the TPU's on-core PRNG, which no
 other device reproduces.  Here each element's 32 random bits come from a
@@ -31,7 +36,6 @@ bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -110,99 +114,209 @@ def _quantize_rows_int8_nearest(x: torch.Tensor):
     return q, scale
 
 
-def _quantize_rows_int8_cuda(x: torch.Tensor, seed: int):
-    from gcn_recommendation_tpu_torch.kernels._build import load_library
+def _quantize_users_int8_reference(x: torch.Tensor):
+    """Plain PyTorch version of the kernel's round-to-nearest mode: the
+    user-side quantizer of ``quantized_topk_scores`` (half to even, the
+    scale of ``_row_scale``); runs on any device."""
+    scale = _row_scale(x)
+    return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
 
+
+_MODE_STOCHASTIC, _MODE_NEAREST = 0, 1
+# the bound launcher of csrc/quant_int8.cu and the stream lookup, both set
+# at the first launch
+_launcher = None
+_raw_stream = None
+
+
+def _bound_launcher():
+    global _launcher, _raw_stream
+    if _launcher is None:
+        from gcn_recommendation_tpu_torch.kernels._build import load_library
+
+        # the current stream's handle of a device index, without building a
+        # torch.cuda.Stream object (5 us of a 15 us call): the function
+        # Triton's launcher uses, where this PyTorch build has it
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+        _launcher = load_library("quant_int8").quantize_rows_int8_launch
+    return _launcher
+
+
+def _check_out(x: torch.Tensor, out) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The caller's ``(q, scales)`` buffers, checked against ``x`` [N, d]:
+    q int8 [N, d] whose rows may be strided (unit stride inside a row),
+    scales float32 [N, 1] contiguous, both on ``x``'s device."""
+    q, scales = out
+    n, d = x.shape
+    ok = (
+        q.dtype == torch.int8 and tuple(q.shape) == (n, d) and q.device == x.device
+        and (d == 0 or q.stride(1) == 1) and (n <= 1 or q.stride(0) >= d)
+        and scales.dtype == torch.float32 and tuple(scales.shape) == (n, 1)
+        and scales.device == x.device and scales.is_contiguous()
+    )
+    if not ok:
+        raise ValueError(
+            f"out= wants int8 {(n, d)} with unit column stride and contiguous "
+            f"float32 {(n, 1)} on {x.device}; got {q.dtype} {tuple(q.shape)} "
+            f"strides {q.stride()} on {q.device} and {scales.dtype} "
+            f"{tuple(scales.shape)} on {scales.device}"
+        )
+    return q, scales
+
+
+def _empty_out(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, d = x.shape
+    return (torch.empty((n, d), dtype=torch.int8, device=x.device),
+            torch.empty((n, 1), dtype=torch.float32, device=x.device))
+
+
+def _launch_quantizer(wrapper, x: torch.Tensor, mode: int, seed: int, out):
+    """Launch csrc/quant_int8.cu on ``x``'s device and the calling
+    thread's current stream, and add one to ``wrapper.launches``; raises
+    when the kernel cannot take ``x`` or the launch is refused.  Returns
+    (q, scales): ``out`` when given, else new tensors.  The host's part of a call is kept short: the launcher
+    is bound once, plain ints go to ctypes (the argument types are
+    declared), and the device context is entered only when ``x`` does not
+    lie on the thread's current device."""
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
             f"quant_int8 kernel takes a contiguous 2-D float32 tensor, got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
+    q, scales = _empty_out(x) if out is None else _check_out(x, out)
     n, d = x.shape
-    q = torch.empty((n, d), dtype=torch.int8, device=x.device)
-    scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return q, scales
-    lib = load_library("quant_int8")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quantize_rows_int8_launch(
-            ctypes.c_void_p(x.data_ptr()),
-            ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(scales.data_ptr()),
-            ctypes.c_int64(n),
-            ctypes.c_int(d),
-            ctypes.c_uint32(int(seed) & _U32),
-            ctypes.c_void_p(stream),
-        )
+    fn = _launcher or _bound_launcher()
+    index = x.device.index
+    if index == torch.cuda.current_device():
+        err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, d, q.stride(0),
+                 mode, seed & _U32, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, d, q.stride(0),
+                     mode, seed & _U32, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"quant_int8 kernel launch failed: CUDA error {err}")
-    quantize_rows_int8.launches += 1
+    wrapper.launches += 1
+    return q, scales
+
+
+def _write_out(result, x: torch.Tensor, out):
+    """A plain version's ``result``, copied into the caller's buffers
+    when there are any."""
+    if out is None:
+        return result
+    q, scales = _check_out(x, out)
+    q.copy_(result[0])
+    scales.copy_(result[1])
     return q, scales
 
 
 def quantize_rows_int8(
-    x: torch.Tensor, seed: int = 0, use_kernel: bool = True
+    x: torch.Tensor, seed: int = 0, use_kernel: bool = True, out=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise int8 quantization of ``x`` [N, d] float32.
 
     Returns (q int8 [N, d], scales float32 [N, 1]).  ``use_kernel``:
     stochastic rounding — the CUDA kernel on a CUDA tensor (it launches
     or raises), its plain version on a CPU tensor.  ``use_kernel=False``:
-    round-to-nearest, on any device.
+    round-to-nearest with the divided scale, on any device.  ``out=(q,
+    scales)``: buffers the caller owns, written in place and returned
+    (``q``'s rows may be strided), so the call allocates nothing.
     """
     if not use_kernel:
-        return _quantize_rows_int8_nearest(x)
+        return _write_out(_quantize_rows_int8_nearest(x), x, out)
     if x.device.type == "cuda":
-        return _quantize_rows_int8_cuda(x, seed)
+        return _launch_quantizer(quantize_rows_int8, x, _MODE_STOCHASTIC, int(seed), out)
     if x.device.type == "cpu":
-        return _quantize_rows_int8_reference(x, seed)
+        return _write_out(_quantize_rows_int8_reference(x, seed), x, out)
     raise ValueError(f"quantize_rows_int8: unsupported device {x.device}")
 
 
-# kernel launches since the last reset (the chip smoke test reads it)
+def quantize_users_int8(x: torch.Tensor, out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Round-to-nearest int8 quantization of a user batch ``x`` [B, d]
+    float32 with the scale ``max(absmax, 1e-12) * f32(1/127)``: what
+    ``quantized_topk_scores`` does to its users.  On a CUDA tensor one
+    launch of the kernel's nearest mode (it launches or raises); on a CPU
+    tensor the plain version.  ``out`` as in ``quantize_rows_int8``."""
+    if x.device.type == "cuda":
+        return _launch_quantizer(quantize_users_int8, x, _MODE_NEAREST, 0, out)
+    if x.device.type == "cpu":
+        return _write_out(_quantize_users_int8_reference(x), x, out)
+    raise ValueError(f"quantize_users_int8: unsupported device {x.device}")
+
+
+# kernel launches of each mode since the last reset (the chip smoke test
+# reads them)
 quantize_rows_int8.launches = 0
+quantize_users_int8.launches = 0
+
+# torch._int_mm wants more than 16 rows on its left and inner and output
+# widths that are multiples of 8
+_INT_MM_MIN_ROWS = 32
+_INT_MM_ALIGN = 8
 
 
-def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    if t.shape[0] == rows:
-        return t
-    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + tuple(t.shape[1:]))])
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pad_int8_table(item_q: torch.Tensor) -> torch.Tensor:
+    """``item_q`` [I, d] int8 with zero rows and columns added up to
+    multiples of 8, the shape the int8 product takes; the tensor itself
+    when it already has it.  A server pads its catalog once, at load:
+    ``quantized_topk_scores`` then copies nothing of it per request."""
+    n, d = item_q.shape
+    n_pad, d_pad = _round_up(n, _INT_MM_ALIGN), _round_up(d, _INT_MM_ALIGN)
+    if (n_pad, d_pad) == (n, d):
+        return item_q
+    return torch.nn.functional.pad(item_q, (0, d_pad - d, 0, n_pad - n))
+
+
+def alloc_user_buffers(b: int, d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed buffers for a batch of ``b`` users: (codes int8
+    [max(32, b), round_up(d, 8)], scales float32 [b, 1]).  The quantizer
+    writes the codes' [:b, :d] corner; the rest stays zero, which adds
+    nothing to an integer dot product.  A caller that serves one batch
+    shape again and again keeps them and passes them as ``user_buffers``."""
+    return (
+        torch.zeros((max(_INT_MM_MIN_ROWS, b), _round_up(d, _INT_MM_ALIGN)),
+                    dtype=torch.int8, device=device),
+        torch.empty((b, 1), dtype=torch.float32, device=device),
+    )
 
 
 def _int8_scores(u_q: torch.Tensor, item_q: torch.Tensor) -> torch.Tensor:
-    """``u_q @ item_q.T`` with int32 accumulation, [B, I].
-
-    On CUDA through ``torch._int_mm`` (the JAX package leaves this
-    product to XLA), which wants more than 16 rows and inner and output
-    widths that are multiples of 8: zero rows and columns are padded in
-    and sliced off (zeros add nothing to an integer dot product).  On the
+    """``u_q @ item_q.T`` with int32 accumulation over padded operands
+    (``alloc_user_buffers``, ``pad_int8_table``).  On CUDA through
+    ``torch._int_mm`` (the JAX package leaves this product to XLA); on the
     CPU an int32 matmul."""
-    b, d = u_q.shape
-    n = item_q.shape[0]
-    if u_q.device.type != "cuda":
-        return u_q.to(torch.int32) @ item_q.to(torch.int32).T
-    d_pad = -(-d // 8) * 8
-    if d_pad != d:
-        u_q = torch.nn.functional.pad(u_q, (0, d_pad - d))
-        item_q = torch.nn.functional.pad(item_q, (0, d_pad - d))
-    u_q = _pad_rows(u_q, max(32, b))
-    item_q = _pad_rows(item_q, -(-n // 8) * 8)
-    return torch._int_mm(u_q, item_q.T)[:b, :n]
+    if u_q.device.type == "cuda":
+        return torch._int_mm(u_q, item_q.T)
+    return u_q.to(torch.int32) @ item_q.to(torch.int32).T
 
 
 def quantized_topk_scores(
     user_emb_batch: torch.Tensor,  # [B, d] float32
-    item_q: torch.Tensor,          # [I, d] int8
+    item_q: torch.Tensor,          # [I, d] int8, or padded by pad_int8_table
     item_scale: torch.Tensor,      # [I, 1] float32
     filter_idx: torch.Tensor,      # [B, F] int64, padded with I
     k: int,
+    user_buffers=None,
 ):
     """Masked top-k over an int8 item table: the user batch is quantized
-    round-to-nearest per row, scores are int8 x int8 -> int32, rescaled
-    as ``s32 * u_scale * item_scale.T`` (the JAX order)."""
-    u_scale = _row_scale(user_emb_batch)
-    u_q = torch.round(user_emb_batch / u_scale).clamp(-127, 127).to(torch.int8)
-    s32 = _int8_scores(u_q, item_q)
+    round-to-nearest per row (``quantize_users_int8``: one kernel launch
+    on the card), scores are int8 x int8 -> int32, rescaled as ``s32 *
+    u_scale * item_scale.T`` (the JAX order).  ``user_buffers``: what
+    ``alloc_user_buffers(B, d, device)`` returned, kept by the caller."""
+    b, d = user_emb_batch.shape
+    n = item_scale.shape[0]
+    if user_buffers is None:
+        user_buffers = alloc_user_buffers(b, d, user_emb_batch.device)
+    codes, u_scale = user_buffers
+    quantize_users_int8(user_emb_batch, out=(codes[:b, :d], u_scale))
+    s32 = _int8_scores(codes, pad_int8_table(item_q))[:b, :n]
     scores = s32.to(torch.float32) * u_scale * item_scale[:, 0][None, :]
     return masked_topk(scores, filter_idx, k)

@@ -7,8 +7,15 @@ device; the sharded catalog waits for the multi-device slice):
 * ``recommend(user_ids, k)`` — masked full-catalog top-k per user batch,
   the user's train-seen items filtered exactly like evaluation;
 * optional int8 item table (``quantize=True``): the catalog quantized by
-  ``ops.quant.quantize_rows_int8`` (the CUDA kernel on the card), scores
-  as int8 x int8 -> int32.
+  ``ops.quant.quantize_rows_int8`` (the CUDA kernel on the card) and
+  padded for the int8 product once, here; scores as int8 x int8 -> int32,
+  each request's users quantized by the same kernel's nearest mode into
+  buffers kept per request shape.
+
+A ``Retriever`` serves one caller at a time: its int8 user buffers are
+reused from request to request (in stream order, so enqueueing several
+requests before fetching any is fine).  The serving daemon calls it from
+its one dispatcher thread.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from gcn_recommendation_tpu_torch.data.sampler import (
     padded_filter_rows,
 )
 from gcn_recommendation_tpu_torch.ops.quant import (
+    alloc_user_buffers,
+    pad_int8_table,
     quantize_rows_int8,
     quantized_topk_scores,
 )
@@ -56,8 +65,11 @@ class Retriever:
         self.num_items = int(item_emb.shape[0])
         self.quantized = quantize
         if quantize:
-            self.item_q, self.item_scale = quantize_rows_int8(item_emb.contiguous())
+            item_q, self.item_scale = quantize_rows_int8(item_emb.contiguous())
+            # padded once for the int8 product, not at every request
+            self.item_q = pad_int8_table(item_q)
             self.item_emb = None
+            self._user_buffers = {}  # padded batch size -> (codes, scales)
         else:
             self.item_emb = item_emb
         self.user_emb = user_emb
@@ -114,7 +126,12 @@ class Retriever:
         filt = self._filter_batch(users_pad, filter_seen)
         u = self.user_emb.index_select(0, torch.from_numpy(users_pad).to(self.device))
         if self.quantized:
-            vals, idx = quantized_topk_scores(u, self.item_q, self.item_scale, filt, k)
+            buffers = self._user_buffers.get(b_pad)
+            if buffers is None:
+                buffers = self._user_buffers[b_pad] = alloc_user_buffers(
+                    b_pad, u.shape[1], self.device)
+            vals, idx = quantized_topk_scores(
+                u, self.item_q, self.item_scale, filt, k, user_buffers=buffers)
         else:
             vals, idx = masked_topk_scores(u, self.item_emb, filt, k)
         return vals, idx, n_req

@@ -61,12 +61,12 @@ VARIANTS = {
 }
 
 
-def variant_source(source: str, edits) -> str:
-    """``source`` with every (old, new) of ``edits`` applied; raises when an
-    ``old`` is not in the source any more."""
+def variant_source(source: str, edits, name: str = "csrc/tile_spmm.cu") -> str:
+    """``source`` (the text of ``name``) with every (old, new) of ``edits``
+    applied; raises when an ``old`` is not in the source any more."""
     for old, new in edits:
         if old not in source:
-            raise ValueError(f"csrc/tile_spmm.cu no longer holds {old!r}: update VARIANTS")
+            raise ValueError(f"{name} no longer holds {old!r}: update VARIANTS")
         source = source.replace(old, new)
     return source
 

@@ -52,6 +52,7 @@ from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches, eval
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 from gcn_recommendation_tpu_torch.utils.logging import Logger
+from gcn_recommendation_tpu_torch.utils.profiling import trace
 
 
 class Trainer:
@@ -241,7 +242,8 @@ class Trainer:
         examples_per_epoch = self.steps_per_epoch * cfg.batch_size
         for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.perf_counter()
-            losses = self.run_epoch()  # ends in a copy to the host
+            with trace(f"epoch_{epoch}"):  # a no-op unless GCN_TPU_TRACE_DIR is set
+                losses = self.run_epoch()  # ends in a copy to the host
             dt = time.perf_counter() - t0
             avg_loss = float(losses.mean()) if len(losses) else 0.0
             if self.logger is not None:

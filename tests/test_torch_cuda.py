@@ -51,6 +51,133 @@ def test_kernel_matches_plain_on_card(card):
         assert torch.equal(q_k, q_p) and torch.equal(s_k, s_p)
 
 
+def _v1(x, seed):
+    """The first version of the quantizer kernel, through its entry point."""
+    from gcn_recommendation_tpu_torch.kernels._build import load_library
+
+    q, s = quant._empty_out(x)
+    err = load_library("quant_int8").quantize_rows_int8_launch_v1(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), x.shape[0], x.shape[1], seed,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return q, s
+
+
+@pytest.mark.parametrize("n,d", [
+    (20_000, 64), (1_024, 64), (1_000, 48), (37, 50), (8, 64), (32, 64), (64, 48), (1, 64),
+    (9, 4), (9, 8), (9, 16), (33, 32), (7, 200), (100, 256), (100, 512), (5, 516), (3, 1000),
+])
+def test_quantizer_modes_match_plain_and_v1_on_card(card, n, d):
+    """New kernel == first kernel == plain (stochastic), new kernel == plain
+    (nearest), bit for bit: every lane-group width, two and four float4s a
+    lane, the warp-per-row path (d % 4 != 0, d > 512), ragged row counts."""
+    x = torch.randn((n, d), generator=torch.Generator(device=card).manual_seed(n + d),
+                    device=card) * 0.05
+    x[0] = 0.0
+    before = (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches)
+    q_k, s_k = quant.quantize_rows_int8(x, seed=9)
+    q_n, s_n = quant.quantize_users_int8(x)
+    assert (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches) == (
+        before[0] + 1, before[1] + 1)
+    q_1, s_1 = _v1(x, 9)
+    q_p, s_p = quant._quantize_rows_int8_reference(x, seed=9)
+    q_r, s_r = quant._quantize_users_int8_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q_k, q_p) and torch.equal(s_k, s_p)
+    assert torch.equal(q_1, q_p) and torch.equal(s_1, s_p)
+    assert torch.equal(q_n, q_r) and torch.equal(s_n, s_r)
+
+
+def test_quantizer_out_buffers_and_odd_bases_on_card(card):
+    """``out=`` is written in place (strided rows into a padded buffer, the
+    padding untouched); a base that is not 16-byte aligned takes the
+    warp-per-row path and gives the same bits; what the wrapper cannot
+    take raises."""
+    x = torch.randn((1000, 50), device=card)
+    codes, scales = quant.alloc_user_buffers(1000, 50, card)
+    q, s = quant.quantize_users_int8(x, out=(codes[:1000, :50], scales))
+    want = quant._quantize_users_int8_reference(x)
+    assert q.data_ptr() == codes.data_ptr() and s is scales
+    assert torch.equal(q, want[0]) and torch.equal(s, want[1]) and not codes[:, 50:].any()
+    x64 = torch.randn((1000, 64), device=card)
+    codes, scales = quant.alloc_user_buffers(1000, 68, card)  # rows 72 bytes apart
+    q, s = quant.quantize_rows_int8(x64, seed=4, out=(codes[:1000, :64], scales))
+    want = quant._quantize_rows_int8_reference(x64, seed=4)
+    assert torch.equal(q, want[0]) and torch.equal(s, want[1]) and not codes[:, 64:].any()
+    shifted = torch.randn(1000 * 64 + 1, device=card)[1:].view(1000, 64)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    q, s = quant.quantize_rows_int8(shifted, seed=4)
+    want = quant._quantize_rows_int8_reference(shifted, seed=4)
+    assert torch.equal(q, want[0]) and torch.equal(s, want[1])
+    with pytest.raises(ValueError, match="contiguous 2-D float32"):
+        quant.quantize_users_int8(x.t())
+    with pytest.raises(ValueError, match="contiguous 2-D float32"):
+        quant.quantize_rows_int8(x.double())
+    with pytest.raises(ValueError, match="out= wants"):
+        quant.quantize_users_int8(x, out=(codes[:1000, :50].cpu(), scales))
+    # empty inputs launch nothing and return empty outputs
+    before = quant.quantize_rows_int8.launches
+    q, s = quant.quantize_rows_int8(torch.empty((0, 64), device=card))
+    assert q.shape == (0, 64) and s.shape == (0, 1)
+    assert quant.quantize_rows_int8.launches == before
+
+
+@pytest.mark.parametrize("b,i,d", [(8, 700, 64), (32, 700, 64), (64, 301, 48), (1024, 301, 50)])
+def test_int8_request_launches_the_nearest_mode_once_on_card(card, b, i, d):
+    """``quantized_topk_scores`` on the card: one launch for the users, the
+    same scores as its plain lines on the CPU."""
+    gen = torch.Generator().manual_seed(b + d)
+    u = torch.randn((b, d), generator=gen)
+    items = torch.randn((i, d), generator=gen)
+    filt = torch.full((b, 4), i, dtype=torch.int64)
+    filt[:, :2] = torch.randint(0, i, (b, 2), generator=gen)
+    item_q, item_scale = quant.quantize_rows_int8(items)  # the plain version, on the CPU
+    v_c, i_c = quant.quantized_topk_scores(u, item_q, item_scale, filt, 10)
+    before = (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches)
+    table = quant.pad_int8_table(item_q.to(card))
+    buffers = quant.alloc_user_buffers(b, d, card)
+    for _ in range(2):  # the kept buffers serve a second request
+        v_k, i_k = quant.quantized_topk_scores(
+            u.to(card), table, item_scale.to(card), filt.to(card), 10, user_buffers=buffers)
+        torch.cuda.synchronize()
+        # integer products are exact: only the f32 rescale may round apart
+        np.testing.assert_allclose(v_k.cpu().numpy(), v_c.numpy(), rtol=1e-6)
+        assert (i_k.cpu() != i_c).float().mean().item() < 0.01
+    assert (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches) == (
+        before[0], before[1] + 2)
+
+
+def test_retriever_on_another_thread_launches_on_its_device_on_card(card, bundle):
+    """The daemon's dispatcher thread: a thread of its own, grad mode and
+    current device per thread.  An int8 request from it launches the
+    nearest mode once and equals the main thread's answer."""
+    import threading
+
+    cfg = Config(embedding_dim=32, n_layers=2)
+    m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                              device=card)
+    params = m.init(torch.Generator().manual_seed(0))
+    r = Retriever.from_params(m, params, bundle, quantize=True)
+    users = np.unique(bundle.train.user_idx)[:16]
+    want = r.recommend(users, k=10)
+    got, before = {}, quant.quantize_users_int8.launches
+
+    def work():
+        got["grad"] = torch.is_grad_enabled()
+        got["answer"] = r.recommend(users, k=10)
+        got["rebuilt"] = Retriever.from_params(m, params, bundle, quantize=True).recommend(
+            users, k=10)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and got["grad"] is True  # a new thread starts with grad enabled
+    assert quant.quantize_users_int8.launches == before + 2
+    for name in ("answer", "rebuilt"):
+        np.testing.assert_array_equal(got[name][1], want[1])
+        np.testing.assert_array_equal(got[name][0], want[0])
+
+
 @pytest.mark.parametrize("dtype,d", [
     (torch.float32, 64), (torch.float32, 48), (torch.float32, 16), (torch.bfloat16, 32),
 ])

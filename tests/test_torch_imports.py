@@ -31,7 +31,8 @@ def test_port_lists_its_modules():
               "ops.block_spmm", "graph.tiles", "data.sampler", "train.loss",
               "train.evaluate", "train.trainer", "utils.logging",
               "models.lightgcn_fusion", "tools", "tools.exp_block_tiles", "tools.exp_tile_variants",
-              "data.synthetic", "graph.build"):
+              "data.synthetic", "graph.build", "server", "data.prepare", "utils.profiling",
+              "tools.exp_quant_call", "tools.exp_daemon_backlog"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -108,10 +109,32 @@ def test_cli_without_device_raises_without_cuda(tmp_path):
     _no_card()
     from gcn_recommendation_tpu_torch import cli
 
-    for mode in ("recommend", "train", "test"):
+    for mode in ("recommend", "train", "test", "serve"):
         for extra in ([], ["--model_name", "LightGCN_Fusion"]):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 cli.main([mode, "--processed_dir", str(tmp_path), *extra])
+
+
+def test_daemon_modules_hold_no_jax_import_in_their_source():
+    """The new modules' text names neither package as an import (the
+    subprocess test above proves it of what they load)."""
+    import re
+
+    for rel in ("server.py", "data/prepare.py", "utils/profiling.py", "cli.py",
+                "tools/exp_quant_call.py"):
+        with open(os.path.join(REPO, PKG, rel)) as f:
+            text = f.read()
+        assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
+                             re.M), rel
+
+
+def test_prepare_needs_no_device():
+    """``prepare`` is host-only: it runs without a card and without
+    ``--device`` (it has no such flag)."""
+    from gcn_recommendation_tpu_torch import cli
+
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["prepare", "--recipe", "synthetic", "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_cuda():
