@@ -97,7 +97,30 @@ fails:
    nearest mode once per int8 dispatch, neither on the f32 server.  A
    ``daemon: {...}`` line gives requests/s and users/s at 16 clients,
    mean and p99 latency, the mean coalesce factor, reload seconds, first
-   against warm call latency and peak memory.
+   against warm call latency and peak memory;
+11. the multi-device layer (``core/mesh.py``, ``parallel/``) as a world of
+   one process over NCCL with mesh (1, 1), both schedules forced
+   (``auto`` takes neither at (1, 1)).  Training: a ``ShardedTrainer``
+   (gspmd) and a ``HaloTrainer`` take the 20 steps of phase 6's ELL
+   trainer (seed-42 params, the same batches and negatives), whose run is
+   repeated here as the reference: losses and final params within rtol
+   1e-4 / atol 1e-6, ms per step and peak memory beside the single-device
+   step.  Evaluation: ``evaluate_sharded`` against ``evaluate_embeddings``
+   on the val split (recall rtol 1e-6, NDCG rtol 1e-5).  Retrieval: the
+   sharded ``Retriever``, f32 and int8, against the single-device one on
+   requests of 1, 64 and 1024 users: equal indices, the int8 catalog
+   bit-equal (the quantizer's row offset), the quantizer launched, with
+   counts from 0, once in stochastic mode per load (one shard a rank) and
+   once in nearest mode per request; latencies beside the single-device
+   ones.  ``recommend --mesh 1,1`` through the CLI's parser and mode
+   function; ``serve --mesh 1,1`` through ``cli.make_server`` over HTTP,
+   before and after a ``/reload``.  With two cards, the same training and retrieval checks on a
+   2-rank NCCL world (meshes (1, 2) and (2, 1)); with one, the line
+   ``mesh_multi: skipped, 1 CUDA device``.  The process group is
+   destroyed at the end of the phase.  Measurement only: a
+   ``torch.profiler`` window of each trainer's steps and of 20 requests of
+   64 users on each retriever (device time by kernel, the host's busiest
+   ops, ``profile_mesh_*:`` lines).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -161,6 +184,9 @@ PAD_MULTIPLES = (8, 48)       # 8 pads only ELL bucket rows here; 48 pads every 
 SCAN_FILLS = (0.0035, 0.015, 0.06, 0.25, 1.0)   # the fill scan of the two tile kernels
 SCAN_MIN_FILLS = (64, 32, 16)                   # tile_min_fill scan of the tile trainer
 MIN_FILL_SCAN_BUDGET_S = 40.0
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-6   # sharded vs single-device training (tests/test_parallel.py)
+MESH_REQUEST_SIZES = (1, 64, 1024)
+MESH_MULTI_TIMEOUT_S = 300          # a 2-rank collective that waits longer fails the run
 QUANT_CHECK_SHAPES = ((20_000, 64), (2_000_000, 64), (1_024, 64), (1_000, 48), (37, 50))
 DAEMON_CLIENTS = 16
 DAEMON_REQUESTS = 200         # a half before the reload, a half after
@@ -736,9 +762,12 @@ def _profile_steps(trainer, users, pos, neg, steps: int = 5):
             kernels[name] = kernels.get(name, 0.0) + evt.self_device_time_total / 1e3 / steps
     busy = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:10]
     return {"wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy,
             "idle_share": 1.0 - busy * steps / wall_ms if busy else None,
-            "top_kernels_ms_per_step": top}
+            "top_kernels_ms_per_step": top,
+            "top_host_self_ms_and_calls_per_step": {k: [ms, n] for k, ms, n in host}}
 
 
 def _twin_trainers(dev, bundle, tmp, model_name, content=None):
@@ -875,7 +904,7 @@ def phase_train(dev, bundle):
         prof = _profile_steps(trainers[tile], users, pos, neg)
         print(f"profile_{name}: " + json.dumps(prof), flush=True)
     _min_fill_scan(dev, bundle, tmp, trainers[False], users, pos, neg)
-    return launches, step_ms
+    return launches, step_ms, losses[False]
 
 
 def _min_fill_scan(dev, bundle, tmp, ell_trainer, users, pos, neg):
@@ -1539,6 +1568,278 @@ def phase_daemon(dev, bundle):
     return out["int8"]["launches"]
 
 
+def _profile_requests(sharded, single, users, reps: int = 20):
+    """Measurement only: ``reps`` requests through each retriever under
+    ``torch.profiler``: wall and device ms a request, and the host ops of
+    the sharded one that take the most self CPU time beside the single-
+    device one's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, r in (("mesh", sharded), ("single", single)):
+        for _ in range(3):
+            r.recommend(users, k=K)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                r.recommend(users, k=K)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        device = sum(e.self_device_time_total for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3 / reps)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])[:8]
+        out[name] = {"wall_ms": wall, "device_ms": device / 1e3 / reps,
+                     "top_host_self_ms": dict(host)}
+    return {"users": len(users), **out}
+
+
+def _mesh_steps(trainer, users, pos, neg):
+    """``TRAIN_STEPS`` steps: per-step losses, ms per step (the first step
+    left out) and the peak memory of the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = [trainer.train_step(users[0], pos[0], neg[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, TRAIN_STEPS):
+        out.append(trainer.train_step(users[s], pos[s], neg[s], step=s))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+    return (torch.stack(out).cpu().numpy(), ms,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _mesh_train(dev, bundle, mesh, ell_losses, meas):
+    """The two sharded trainers against phase 6's ELL trainer, rerun here;
+    returns the reference's batches and seed-42 params (numpy)."""
+    from gcn_recommendation_tpu_torch.parallel.halo import HaloTrainer
+    from gcn_recommendation_tpu_torch.parallel.spmd import ShardedTrainer
+
+    cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048)
+    params0 = None
+    results = {}
+    for name, cls in (("single", Trainer), ("gspmd", ShardedTrainer), ("halo", HaloTrainer)):
+        model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                      device=dev)
+        if params0 is None:
+            params0 = {k: v.clone() for k, v in
+                       model.init(torch.Generator().manual_seed(42)).items()}
+        else:
+            model.load_params(params0)
+        t0 = time.perf_counter()
+        tr = cls(cfg, model, bundle) if cls is Trainer else cls(cfg, model, bundle, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if name == "single":
+            users, pos, neg = _twin_batches(dev, tr, bundle)
+        losses, ms, peak = _mesh_steps(tr, users, pos, neg)
+        final = {k: v.clone() for k, v in tr._export_tree(tr.model.params()).items()}
+        results[name] = (losses, final)
+        # measurement only, after the snapshot: it steps on
+        print(f"profile_mesh_{name}: " + json.dumps(_profile_steps(tr, users, pos, neg)),
+              flush=True)
+        meas[f"ms_per_step_{name}"] = ms
+        meas[f"peak_mem_gib_{name}"] = peak
+        meas[f"trainer_build_s_{name}"] = build_s
+        if name == "single":
+            fu, fi, *_ = tr._forward_eval()
+            check(np.allclose(losses, ell_losses, rtol=1e-6, atol=0),
+                  "mesh reference: the ELL trainer's 20 losses repeat phase 6's")
+        del tr, model
+    ref_losses, ref_params = results["single"]
+    for name in ("gspmd", "halo"):
+        losses, final = results[name]
+        check(np.isfinite(losses).all() and np.allclose(
+            losses, ref_losses, rtol=MESH_RTOL, atol=MESH_ATOL),
+            f"mesh (1,1) {name}: 20 step losses equal the single-device ELL trainer's "
+            f"(max abs diff {np.abs(losses - ref_losses).max():.3g})")
+        diff = max((final[k] - ref_params[k]).abs().max().item() for k in ref_params)
+        check(all(torch.allclose(final[k], ref_params[k], rtol=MESH_RTOL, atol=MESH_ATOL)
+                  for k in ref_params),
+              f"mesh (1,1) {name}: final params equal the single-device ELL trainer's "
+              f"(max abs diff {diff:.3g})")
+        meas[f"params_max_abs_diff_{name}"] = diff
+    batches = [tuple(a[s].cpu().numpy() for a in (users, pos, neg)) for s in range(TRAIN_STEPS)]
+    return fu, fi, batches, {k: v.cpu().numpy() for k, v in params0.items()}
+
+
+def _mesh_retrieval(dev, bundle, mesh, requests, meas):
+    """The sharded retrievers against the single-device ones; returns the
+    quantizer's launches on the sharded path (counted from 0)."""
+    cfg = Config(embedding_dim=64, n_layers=3)
+    model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=dev)
+    params = model.init(torch.Generator().manual_seed(42))
+    single = {q: Retriever.from_params(model, params, bundle, quantize=q) for q in (False, True)}
+
+    # --- the main path: counts from 0, read right after ---
+    quant.quantize_rows_int8.launches = 0
+    quant.quantize_users_int8.launches = 0
+    sharded = {q: Retriever.from_params(model, params, bundle, quantize=q, mesh=mesh)
+               for q in (False, True)}
+    answers = {q: [sharded[q].recommend(u, k=K) for u in requests] for q in (False, True)}
+    launches = {"quantize_rows_int8": quant.quantize_rows_int8.launches,
+                "quantize_users_int8": quant.quantize_users_int8.launches}
+    # --- end of the main path ---
+
+    check(launches["quantize_rows_int8"] == 1,
+          f"mesh (1,1): the int8 load launched the stochastic quantizer once on its one "
+          f"shard ({launches['quantize_rows_int8']}x)")
+    check(launches["quantize_users_int8"] == len(requests),
+          f"mesh (1,1): the nearest quantizer launched once per int8 request "
+          f"({launches['quantize_users_int8']}x for {len(requests)})")
+    n = bundle.num_items
+    check(torch.equal(sharded[True].item_q[:n], single[True].item_q[:n])
+          and torch.equal(sharded[True].item_scale[:n], single[True].item_scale[:n]),
+          "mesh (1,1): the sharded int8 catalog is bit-equal to the single-device one")
+    for q, name in ((False, "f32"), (True, "int8")):
+        want = [single[q].recommend(u, k=K) for u in requests]
+        for u, (v, i), (wv, wi) in zip(requests, answers[q], want):
+            check(np.array_equal(i, wi) and np.allclose(v, wv, rtol=1e-6, atol=0),
+                  f"mesh (1,1) {name}: a {len(u)}-user request equals the single-device "
+                  f"retriever's")
+        for u in requests:
+            meas[f"{name}_b{len(u)}_ms_mesh"] = _host_ms(lambda: sharded[q].recommend(u, k=K))
+            meas[f"{name}_b{len(u)}_ms_single"] = _host_ms(lambda: single[q].recommend(u, k=K))
+    for q, name in ((False, "f32"), (True, "int8")):
+        print(f"profile_mesh_request_{name}: " + json.dumps(
+            _profile_requests(sharded[q], single[q], requests[1])), flush=True)
+    return launches, model, params, single[True]
+
+
+def _mesh_cli(dev, bundle, model, params, single_int8, requests):
+    """``recommend --mesh 1,1 --int8`` through the CLI's parser and mode
+    function (the data already in memory: no parquet on this machine)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ckpt.save_params(tmp, params)
+    users = requests[1][:8]
+    args = cli.build_parser().parse_args(
+        ["recommend", "--mesh", "1,1", "--model_path", tmp, "--int8", "--k", str(K),
+         "--users", ",".join(str(u) for u in users)])
+    mesh = cli._build_mesh(args)
+    config = cli._make_config(args)
+    _, scores, items = cli.recommend_loaded(config, args, bundle, model, dev, mesh)
+    want = single_int8.recommend(users, k=K)
+    check(np.array_equal(items, want[1]) and np.allclose(scores, want[0], rtol=1e-6, atol=0),
+          "recommend --mesh 1,1 --int8 through the CLI answers as the single-device retriever")
+
+    # serve --mesh 1,1: the leader broadcasts each dispatch, the reload and
+    # the shutdown over NCCL from the dispatcher thread (no follower here)
+    args = cli.build_parser().parse_args(
+        ["serve", "--mesh", "1,1", "--model_path", tmp, "--int8", "--port", "0",
+         "--warm_batch", "8"])
+    server = cli.make_server(cli._make_config(args), args, bundle, model, dev,
+                             cli._build_mesh(args))
+    server.start_background()
+    try:
+        for phase in ("before", "after"):
+            for u in requests[:2]:
+                u = u[:DAEMON_MAX_USERS]
+                status, body, _ = _http(server.port, "/recommend", {"users": u.tolist(), "k": K})
+                want = single_int8.recommend(u, k=K)
+                check(status == 200 and body["items"] == want[1].tolist()
+                      and np.allclose(body["scores"], want[0], rtol=0, atol=DAEMON_SCORE_ATOL),
+                      f"serve --mesh 1,1 --int8: a {len(u)}-user request over HTTP answers "
+                      f"as the single-device retriever ({phase} a /reload)")
+            if phase == "before":
+                check(_http(server.port, "/reload", {})[0] == 200,
+                      "serve --mesh 1,1: /reload rebuilds the sharded retriever")
+    finally:
+        server.shutdown()
+
+
+def _mesh_multi(bundle, batches, params0, requests, meas):
+    """Two cards: the training and retrieval checks on a 2-rank NCCL world,
+    meshes (1, 2) and (2, 1)."""
+    from gcn_recommendation_tpu_torch.core.mesh import run_local_world
+    from gcn_recommendation_tpu_torch.parallel import drivers
+
+    cfg = dict(embedding_dim=64, n_layers=3, batch_size=2048)
+    train = [("train_case", dict(bundle=bundle, cfg_kwargs=cfg, batches=batches, params=params0,
+                                 mesh_shape=shape, schedule=sched, device="cuda",
+                                 record_trajectory=False))
+             for shape in ((1, 2), (2, 1)) for sched in ("gspmd", "halo")]
+    retr = [("retriever_case", dict(bundle=bundle, cfg_kwargs=cfg, params=params0,
+                                    requests=requests, k=K, quantize=q, mesh_shape=(1, 2),
+                                    device="cuda")) for q in (False, True)]
+    t0 = time.perf_counter()
+    out = run_local_world(2, drivers.run_cases, train + retr, device="cuda",
+                          timeout_s=MESH_MULTI_TIMEOUT_S)
+    meas["multi_world_s"] = time.perf_counter() - t0
+    print(f"mesh_multi: 2-rank world over NCCL, {len(out)} cases in "
+          f"{meas['multi_world_s']:.1f} s", flush=True)
+    ref = drivers.train_case(bundle, cfg, batches, params=params0, device="cuda",
+                             record_trajectory=False)
+    for (_, case), res in zip(train, out[: len(train)]):
+        what = f"mesh {case['mesh_shape']} {case['schedule']} over NCCL on 2 cards"
+        check(np.allclose(res["step_losses"], ref["step_losses"], rtol=MESH_RTOL, atol=MESH_ATOL)
+              and all(np.allclose(res["params"][k], ref["params"][k], rtol=MESH_RTOL,
+                                  atol=MESH_ATOL) for k in ref["params"]),
+              f"{what}: losses and params equal the single-device run's")
+    for (_, case), res in zip(retr, out[len(train):]):
+        want = drivers.retriever_case(bundle, cfg, params0, requests, K, case["quantize"],
+                                      device="cuda")
+        check(all(np.array_equal(a[1], b[1]) for a, b in zip(res["answers"], want["answers"]))
+              and res["launches_load"] == (1 if case["quantize"] else 0),
+              f"mesh (1,2) {'int8' if case['quantize'] else 'f32'} retriever over NCCL on 2 "
+              "cards equals the single-device one")
+        if case["quantize"]:
+            check(np.array_equal(res["item_q"], want["item_q"]),
+                  "mesh (1,2): the int8 catalog of two shards is bit-equal to the whole one")
+
+
+def phase_mesh(dev, bundle, ell_losses):
+    """The multi-device layer on the card: a world of one over NCCL with
+    mesh (1, 1), and a 2-rank world when two cards are present.  Returns
+    the quantizer's launches on the sharded retrieval path."""
+    from gcn_recommendation_tpu_torch.core import distributed
+    from gcn_recommendation_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from gcn_recommendation_tpu_torch.parallel.spmd import evaluate_sharded
+    from gcn_recommendation_tpu_torch.train.evaluate import evaluate_embeddings
+
+    t_phase = time.perf_counter()
+    distributed.initialize("cuda", mesh_spec=MeshSpec(1, 1))
+    try:
+        mesh = create_mesh(MeshSpec(1, 1))
+        check(torch.distributed.get_backend() == "nccl" and mesh.size == 1,
+              "mesh (1,1): a world of one process over NCCL")
+        meas = {}
+        fu, fi, batches, params0 = _mesh_train(dev, bundle, mesh, ell_losses, meas)
+
+        b = bundle
+        t0 = time.perf_counter()
+        r_s, n_s = evaluate_sharded(mesh, fu, fi, b.val, b.train, b.num_users, b.num_items, K)
+        meas["evaluate_sharded_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r_1, n_1 = evaluate_embeddings(fu, fi, b.val, b.train, b.num_users, b.num_items, K)
+        meas["evaluate_single_s"] = time.perf_counter() - t0
+        check(np.isclose(r_s, r_1, rtol=1e-6, atol=0) and np.isclose(n_s, n_1, rtol=1e-5, atol=0),
+              f"mesh (1,1): evaluate_sharded Recall@{K} {r_s:.6f} / NDCG {n_s:.6f} equal "
+              f"evaluate's {r_1:.6f} / {n_1:.6f}")
+        meas.update(val_recall20=r_s, val_ndcg20=n_s)
+
+        rng = np.random.default_rng(1)
+        active = np.unique(bundle.train.user_idx)
+        requests = [rng.choice(active, n, replace=False).astype(np.int32)
+                    for n in MESH_REQUEST_SIZES]
+        launches, model, params, single_int8 = _mesh_retrieval(dev, bundle, mesh, requests, meas)
+        _mesh_cli(dev, bundle, model, params, single_int8, requests)
+
+        if torch.cuda.device_count() >= 2:
+            _mesh_multi(bundle, batches, params0, requests, meas)
+        else:
+            print(f"mesh_multi: skipped, {torch.cuda.device_count()} CUDA device", flush=True)
+        meas["phase_s"] = time.perf_counter() - t_phase
+        meas["launches"] = launches
+        print("mesh: " + json.dumps(meas), flush=True)
+        return launches
+    finally:
+        distributed.shutdown()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -1564,11 +1865,12 @@ def main() -> int:
     bundle, bundle_s = books_bundle()
     serve_launches = phase_path(dev, bundle, bundle_s)
     tile_record = phase_tile_kernel_check(dev, bundle)
-    train_launches, step_ms = phase_train(dev, bundle)
+    train_launches, step_ms, ell_losses = phase_train(dev, bundle)
     x1_record, x2_record = phase_exp_tiles(dev)
     fusion_launches = phase_fusion(dev, bundle, step_ms)
     phase_padding(dev, bundle)
     daemon_launches = phase_daemon(dev, bundle)
+    mesh_launches = phase_mesh(dev, bundle, ell_losses)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -1578,6 +1880,8 @@ def main() -> int:
     quant_record["launches_recommend_path"] = serve_launches["quantize_rows_int8"]
     quant_record["launches_recommend_path_nearest"] = serve_launches["quantize_users_int8"]
     quant_record["launches_fusion_path"] = fusion_launches["quantize_rows_int8"]
+    quant_record["launches_mesh_stochastic"] = mesh_launches["quantize_rows_int8"]
+    quant_record["launches_mesh_nearest"] = mesh_launches["quantize_users_int8"]
     tile_record["launches"] = train_launches["tile_matvec"]
     tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)

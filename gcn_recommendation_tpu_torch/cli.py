@@ -22,7 +22,24 @@ names, with the same output lines:
 
 ``--profile_dir DIR`` (every mode but ``prepare``) writes one
 ``torch.profiler`` Chrome trace per training epoch under DIR; it is the
-same as setting ``GCN_TPU_TRACE_DIR``.
+same as setting ``GCN_TPU_TRACE_DIR``.  ``--debug_nans`` runs each
+training step under ``torch.autograd.detect_anomaly`` and stops at the
+first non-finite loss with its epoch and step.
+
+``--mesh DATA,MODEL [--schedule auto|gspmd|halo]`` (every mode but
+``prepare``) runs one process per device over a ('data', 'model') mesh
+(``core/mesh.py``, ``parallel/``): tables, Adam moments, ELL rows and the
+item catalog row-sharded over ``model``, batches and evaluation users
+split over ``data``.  Start it with one process per device:
+
+    torchrun --nproc_per_node 2 -m gcn_recommendation_tpu_torch train \
+        --processed_dir DIR --mesh 1,2 [--device cpu]
+
+(``--device cpu``: gloo on the CPU; else NCCL, one card per rank).
+``--mesh 1,1`` needs no launcher.  ``--schedule auto`` takes ``halo``
+when the model axis is above 1, else ``gspmd``, as the JAX package does.
+Only rank 0 prints results and writes files; ``serve`` answers HTTP on
+rank 0, and the other ranks follow its dispatches.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Checkpoints are the
 port's own (``utils/checkpoint.py``): ``train`` writes ``best.pt`` and
@@ -71,6 +88,29 @@ def build_parser() -> argparse.ArgumentParser:
                              "this dir; equivalent to setting GCN_TPU_TRACE_DIR.")
         sp.add_argument("--device", type=str, default=None,
                         help="'cuda' (default) or 'cpu'.")
+        sp.add_argument("--debug_nans", action="store_true",
+                        help="Autograd anomaly mode around each training step; "
+                             "stop at the first non-finite loss.")
+        sp.add_argument("--tile_spmm", action="store_true",
+                        help="Propagate the dense row-block mass through block-"
+                             "sparse 128x128 tiles (csrc/tile_spmm.cu on the "
+                             "card; single-device only).")
+        sp.add_argument("--tile_min_fill", type=int, default=64,
+                        help="Edges a 128x128 tile needs to qualify.")
+        sp.add_argument("--tile_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"])
+        sp.add_argument("--mesh", type=str, default=None,
+                        help="DATA,MODEL device-mesh shape for sharded execution, "
+                             "one process per device (e.g. '1,2': tables and "
+                             "catalog row-sharded 2 ways). Default: one device.")
+        sp.add_argument("--schedule", type=str, default="auto",
+                        choices=["auto", "gspmd", "halo"],
+                        help="Sharded propagation schedule: 'halo' (per-layer "
+                             "all-gather of the node block, local rows only — "
+                             "parallel/halo.py) or 'gspmd' (bucket rows sharded, "
+                             "bucket outputs all-gathered — parallel/spmd.py). "
+                             "'auto' picks halo whenever the model axis is "
+                             "sharded, gspmd for pure data parallelism.")
 
     tr = sub.add_parser("train", help="Train a model.")
     add_common(tr)
@@ -86,13 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "ID table from the pretrained matrix.")
     tr.add_argument("--resume", action="store_true",
                     help="Resume from the rolling 'last' checkpoint.")
-    tr.add_argument("--tile_spmm", action="store_true",
-                    help="Propagate the dense row-block mass through block-"
-                         "sparse 128x128 tiles (csrc/tile_spmm.cu on the card).")
-    tr.add_argument("--tile_min_fill", type=int, default=64,
-                    help="Edges a 128x128 tile needs to qualify.")
-    tr.add_argument("--tile_dtype", type=str, default="float32",
-                    choices=["float32", "bfloat16"])
 
     te = sub.add_parser("test", help="Evaluate the best checkpoint on the test split.")
     add_common(te)
@@ -227,6 +260,10 @@ def _make_config(args):
         use_pretrained_emb=args.use_pretrained_emb,
         seed=args.seed,
         compute_dtype=args.compute_dtype,
+        debug_nans=args.debug_nans,
+        tile_spmm=args.tile_spmm,
+        tile_min_fill=args.tile_min_fill,
+        tile_dtype=args.tile_dtype,
     )
     if args.output_root:
         kwargs["checkpoint_dir"] = os.path.join(
@@ -238,9 +275,6 @@ def _make_config(args):
             epochs=args.epochs,
             brand_loss=args.brand_loss,
             fusion_id_init=args.fusion_id_init,
-            tile_spmm=args.tile_spmm,
-            tile_min_fill=args.tile_min_fill,
-            tile_dtype=args.tile_dtype,
         )
         for name in ("batch_size", "learning_rate", "val_interval"):
             if getattr(args, name) is not None:
@@ -287,63 +321,144 @@ def _restore_best_params(config, args, device):
     return params
 
 
-def run_train(args) -> int:
-    from gcn_recommendation_tpu_torch.core.device import resolve_device
+def _build_mesh(args):
+    """This rank's ('data', 'model') mesh from ``--mesh``, or None for one
+    device.  Joins the run's process group first (``torchrun``'s, or a
+    world of one for ``1,1``)."""
+    mesh_arg = getattr(args, "mesh", None)
+    if not mesh_arg:
+        return None
+    from gcn_recommendation_tpu_torch.core.distributed import get_world_size, initialize
+    from gcn_recommendation_tpu_torch.core.mesh import MeshSpec, create_mesh
+
+    try:
+        data, model_par = (int(x) for x in mesh_arg.split(","))
+    except ValueError:
+        raise ValueError(f"--mesh must be 'DATA,MODEL', got {mesh_arg!r}") from None
+    if args.tile_spmm and args.mode in ("train", "test"):
+        # the tile partition is single-device only (the JAX package's flag says so)
+        raise ValueError("--tile_spmm is single-device only: drop it or --mesh")
+    spec = MeshSpec(data=data, model=model_par)
+    initialize(args.device, mesh_spec=spec)
+    n = get_world_size()
+    if data * model_par != n:
+        raise ValueError(f"--mesh {data}x{model_par} needs {data * model_par} devices, have {n}")
+    return create_mesh(spec)
+
+
+def _pick_schedule(args, mesh):
+    """``--schedule``; ``auto`` is ``halo`` when the model axis is
+    sharded, else ``gspmd`` (pure data parallelism has no halo)."""
+    from gcn_recommendation_tpu_torch.core.mesh import MODEL_AXIS
+
+    schedule = getattr(args, "schedule", "auto") or "auto"
+    if schedule == "auto":
+        schedule = "halo" if mesh.shape[MODEL_AXIS] > 1 else "gspmd"
+    return schedule
+
+
+def _make_trainer(config, model, bundle, logger, args, mesh=None):
+    """Single-device Trainer, or the schedule's sharded trainer on ``mesh``."""
     from gcn_recommendation_tpu_torch.train.trainer import Trainer
+
+    if mesh is None:
+        return Trainer(config, model, bundle, logger=logger)
+    schedule = _pick_schedule(args, mesh)
+    if _is_rank0():
+        print(f"Sharded execution: mesh {mesh.shape}, schedule={schedule}")
+    if schedule == "halo":
+        from gcn_recommendation_tpu_torch.parallel.halo import HaloTrainer
+
+        return HaloTrainer(config, model, bundle, mesh, logger=logger)
+    from gcn_recommendation_tpu_torch.parallel.spmd import ShardedTrainer
+
+    return ShardedTrainer(config, model, bundle, mesh, logger=logger)
+
+
+def _is_rank0() -> bool:
+    from gcn_recommendation_tpu_torch.core.distributed import get_rank
+
+    return get_rank() == 0
+
+
+def _device_and_mesh(args):
+    """(the rank's device, its mesh or None)."""
+    from gcn_recommendation_tpu_torch.core.device import resolve_device
+
+    mesh = _build_mesh(args)
+    return (mesh.device if mesh is not None else resolve_device(args.device)), mesh
+
+
+def run_train(args) -> int:
     from gcn_recommendation_tpu_torch.utils.logging import Logger
 
     config = _make_config(args)
-    device = resolve_device(args.device)
+    device, mesh = _device_and_mesh(args)
     bundle, model = _load_everything(config, device)
-    logger = Logger(config.results_dir, config.logger_name(), top_k=config.top_k)
-    trainer = Trainer(config, model, bundle, logger=logger)
-    print("\nStep 2: Starting model training...")
-    if config.use_brand:
-        print(f"Author Loss Config: brand_loss={config.brand_loss}, "
-              f"weight={config.brand_loss_weight}")
+    logger = (Logger(config.results_dir, config.logger_name(), top_k=config.top_k)
+              if _is_rank0() else None)
+    trainer = _make_trainer(config, model, bundle, logger, args, mesh)
+    if _is_rank0():
+        print("\nStep 2: Starting model training...")
+        if config.use_brand:
+            print(f"Author Loss Config: brand_loss={config.brand_loss}, "
+                  f"weight={config.brand_loss_weight}")
     trainer.fit(resume=args.resume)
-    print("Training finished.")
+    if _is_rank0():
+        print("Training finished.")
     return 0
 
 
 def run_test(args) -> int:
-    from gcn_recommendation_tpu_torch.core.device import resolve_device
     from gcn_recommendation_tpu_torch.data.loader import Interactions
     from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
     from gcn_recommendation_tpu_torch.train.evaluate import evaluate
 
     config = _make_config(args)
-    device = resolve_device(args.device)
+    device, mesh = _device_and_mesh(args)
     bundle, model = _load_everything(config, device)
-    model.load_params(_restore_best_params(config, args, device))
+    params = _restore_best_params(config, args, device)
 
-    print("Evaluating on the TEST set...")
+    model.load_params(params)
+    if _is_rank0():
+        print("Evaluating on the TEST set...")
     # test-time filter = train + val (main.py:576)
     filt = Interactions(
         np.concatenate([bundle.train.user_idx, bundle.val.user_idx]),
         np.concatenate([bundle.train.item_idx, bundle.val.item_idx]),
     )
-    graph = to_device_graph_auto(
-        bundle.graph, compute_dtype=model.compute_dtype, device=device
-    )
-    recall, ndcg = evaluate(
-        model, graph, bundle.test, filt, bundle.num_users, bundle.num_items,
-        config.top_k, config.eval_user_batch,
-    )
-    print("\n--- Final Test Results ---")
-    print(f"Recall@{config.top_k}: {recall:.4f}")
-    print(f"NDCG@{config.top_k}:   {ndcg:.4f}")
-    print("--------------------------")
+    if mesh is not None:
+        # the schedule's sharded forward, then items row-sharded over
+        # 'model' and the test users split over 'data'
+        from gcn_recommendation_tpu_torch.parallel.spmd import evaluate_sharded
+
+        trainer = _make_trainer(config, model, bundle, None, args, mesh)
+        fu, fi, *_ = trainer._forward_eval()
+        recall, ndcg = evaluate_sharded(
+            mesh, fu, fi, bundle.test, filt, bundle.num_users, bundle.num_items,
+            config.top_k, config.eval_user_batch,
+        )
+    else:
+        graph = to_device_graph_auto(
+            bundle.graph, compute_dtype=model.compute_dtype, device=device
+        )
+        recall, ndcg = evaluate(
+            model, graph, bundle.test, filt, bundle.num_users, bundle.num_items,
+            config.top_k, config.eval_user_batch,
+        )
+    if _is_rank0():
+        print("\n--- Final Test Results ---")
+        print(f"Recall@{config.top_k}: {recall:.4f}")
+        print(f"NDCG@{config.top_k}:   {ndcg:.4f}")
+        print("--------------------------")
     return 0
 
 
-def run_recommend(args) -> int:
-    from gcn_recommendation_tpu_torch.core.device import resolve_device
+def recommend_loaded(config, args, bundle, model, device, mesh=None):
+    """The ``recommend`` mode over loaded data: restore the best
+    checkpoint, build the ``Retriever`` (sharded on ``mesh``), answer the
+    users, print on rank 0.  Returns (users, scores, items)."""
     from gcn_recommendation_tpu_torch.serve import Retriever
-
-    config = _make_config(args)
-    device = resolve_device(args.device)
-    bundle, model = _load_everything(config, device)
 
     # validate cheap inputs before the restore and the propagation
     k = config.top_k if args.k is None else args.k
@@ -362,55 +477,91 @@ def run_recommend(args) -> int:
         ).astype(np.int32)
 
     params = _restore_best_params(config, args, device)
-    retriever = Retriever.from_params(model, params, bundle, quantize=args.int8)
+    retriever = Retriever.from_params(model, params, bundle, quantize=args.int8, mesh=mesh)
     scores, items = retriever.recommend(
         users, k=k, filter_seen=not args.include_seen
     )
-    catalog = "int8" if args.int8 else "f32"
-    print(f"Top-{k} recommendations ({catalog} catalog, "
-          f"{'seen items included' if args.include_seen else 'seen items filtered'}):")
-    for u, s_row, i_row in zip(users, scores, items):
-        pairs = " ".join(f"{i}:{v:.3f}" for i, v in zip(i_row, s_row))
-        print(f"user {u}: {pairs}")
+    if _is_rank0():
+        catalog = "int8" if args.int8 else "f32"
+        print(f"Top-{k} recommendations ({catalog} catalog, "
+              f"{'seen items included' if args.include_seen else 'seen items filtered'}):")
+        for u, s_row, i_row in zip(users, scores, items):
+            pairs = " ".join(f"{i}:{v:.3f}" for i, v in zip(i_row, s_row))
+            print(f"user {u}: {pairs}")
+    return users, scores, items
+
+
+def run_recommend(args) -> int:
+    config = _make_config(args)
+    device, mesh = _device_and_mesh(args)
+    bundle, model = _load_everything(config, device)
+    recommend_loaded(config, args, bundle, model, device, mesh)
     return 0
 
 
-def make_server(config, args, bundle, model, device):
-    """The daemon over loaded data: restore the best checkpoint, build the
-    ``Retriever`` (``args.int8``: the int8 catalog), answer one request so
-    that the first real one finds the device set up, and return the
-    ``RecommendServer`` (not yet serving), whose ``POST /reload`` reads
-    the checkpoint from disk again and rebuilds the retriever."""
-    from gcn_recommendation_tpu_torch.serve import Retriever
-    from gcn_recommendation_tpu_torch.server import RecommendServer
-
+def _retriever_builder(config, args, bundle, model, device, mesh):
     def build_retriever():
         """Also the /reload target.  It runs on the server's dispatcher
         thread, which has its own grad mode and current device: the
         checkpoint is mapped to the serving device here, and
         ``Retriever.from_params`` brings its own ``no_grad``."""
-        params = _restore_best_params(config, args, device)
-        return Retriever.from_params(model, params, bundle, quantize=args.int8)
+        from gcn_recommendation_tpu_torch.serve import Retriever
 
+        params = _restore_best_params(config, args, device)
+        return Retriever.from_params(model, params, bundle, quantize=args.int8, mesh=mesh)
+
+    return build_retriever
+
+
+def make_server(config, args, bundle, model, device, mesh=None):
+    """The daemon over loaded data: restore the best checkpoint, build the
+    ``Retriever`` (``args.int8``: the int8 catalog; ``mesh``: sharded, with
+    this rank as the leader the other ranks follow), answer one request so
+    that the first real one finds the device set up, and return the
+    ``RecommendServer`` (not yet serving), whose ``POST /reload`` reads
+    the checkpoint from disk again and rebuilds the retriever."""
+    from gcn_recommendation_tpu_torch.server import MeshLeader, RecommendServer
+
+    build_retriever = _retriever_builder(config, args, bundle, model, device, mesh)
     retriever = build_retriever()
     retriever.recommend(np.zeros(1, np.int32), k=config.top_k)
+    reload_fn, on_stop = build_retriever, None
+    if mesh is not None:
+        retriever = MeshLeader(retriever)
+        reload_fn = lambda: retriever.reload(build_retriever)  # noqa: E731
+        on_stop = retriever.stop
     return RecommendServer(
         retriever, bundle.num_users, host=args.host, port=args.port,
         max_coalesce=args.max_coalesce,
         max_request_users=args.max_request_users,
-        reload_fn=build_retriever,
+        reload_fn=reload_fn,
         warm=(args.warm_batch, config.top_k) if args.warm_batch else None,
+        on_stop=on_stop,
     )
 
 
-def run_serve(args) -> int:
-    """Serving daemon entry: checkpoint -> Retriever -> HTTP loop."""
-    from gcn_recommendation_tpu_torch.core.device import resolve_device
+def follow_server(config, args, bundle, model, device, mesh) -> int:
+    """A rank other than 0 of ``serve --mesh``: build the same retriever,
+    answer the same first request, then make every call rank 0 announces
+    until it shuts down.  An error ends the process (nonzero exit)."""
+    from gcn_recommendation_tpu_torch.server import follow
 
+    build_retriever = _retriever_builder(config, args, bundle, model, device, mesh)
+    retriever = build_retriever()
+    retriever.recommend(np.zeros(1, np.int32), k=config.top_k)
+    follow(retriever, build_retriever)
+    return 0
+
+
+def run_serve(args) -> int:
+    """Serving daemon entry: checkpoint -> Retriever -> HTTP loop (rank 0;
+    the other ranks of a mesh follow it)."""
     config = _make_config(args)
-    device = resolve_device(args.device)
+    device, mesh = _device_and_mesh(args)
     bundle, model = _load_everything(config, device)
-    server = make_server(config, args, bundle, model, device)
+    if not _is_rank0():
+        return follow_server(config, args, bundle, model, device, mesh)
+    server = make_server(config, args, bundle, model, device, mesh)
     print(f"serving on http://{args.host}:{server.port} "
           f"({'int8' if args.int8 else 'f32'} catalog, "
           f"max_coalesce={args.max_coalesce})", flush=True)
@@ -428,10 +579,19 @@ def run_prepare(args) -> int:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from gcn_recommendation_tpu_torch.core import distributed
+
     args = build_parser().parse_args(argv)
     modes = {"train": run_train, "test": run_test, "recommend": run_recommend,
              "serve": run_serve, "prepare": run_prepare}
-    return modes[args.mode](args)
+    joined_here = not dist.is_initialized()
+    try:
+        return modes[args.mode](args)
+    finally:
+        if joined_here:  # a mesh run leaves the process group it joined
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

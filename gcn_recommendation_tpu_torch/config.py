@@ -71,6 +71,8 @@ class Config:
     seed: int = 42
 
     debug: bool = False
+    debug_nans: bool = False            # autograd anomaly mode around each step,
+                                        # stop at the first non-finite loss
 
     # --- storage dtypes ---
     param_dtype: str = "float32"        # embedding-table storage dtype

@@ -6,7 +6,9 @@
 //   stochastic: q = clip(floor(x / scale + u), -127, 127)  as int8
 //   nearest:    q = clip(rint(x / scale), -127, 127)       as int8
 // with u = (bits >> 8) * 2^-24 and bits = triple32((row*d + col) ^ triple32(seed))
-// over uint32 (the counter-based generator of ops/quant.py, whose plain
+// over uint32, where row is the global row: the local row plus row_offset (a
+// shard of a catalog passes its first row, so its codes equal the whole
+// catalog's rows) (the counter-based generator of ops/quant.py, whose plain
 // PyTorch version reproduces these bits and this arithmetic exactly).
 // The stochastic mode quantizes the item catalog at every load; the
 // nearest mode is the user-side quantizer of quantized_topk_scores, one
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 quantize_rows_vec_kernel(const float4* __restrict__ x,
                          uint32_t* __restrict__ q, float* __restrict__ scales,
                          long long n, int d4, long long q_stride_words,
-                         uint32_t seed_key) {
+                         long long row_offset, uint32_t seed_key) {
   const int lane = threadIdx.x & (GROUP - 1);
   const long long group =
       ((long long)blockIdx.x * kBlockThreads + threadIdx.x) / GROUP;
@@ -127,7 +129,7 @@ quantize_rows_vec_kernel(const float4* __restrict__ x,
         absmax = fmaxf(absmax, __shfl_xor_sync(0xffffffffu, absmax, off));
       if (row >= n) continue;
       const float scale = fmaxf(absmax, 1e-12f) * kInv127;
-      const uint32_t row_counter = (uint32_t)row * d;
+      const uint32_t row_counter = (uint32_t)(row + row_offset) * d;
 #pragma unroll
       for (int k = 0; k < VPL; ++k) {
         const int j = lane + k * GROUP;
@@ -156,6 +158,7 @@ __global__ void quantize_rows_warp_kernel(const float* __restrict__ x,
                                           float* __restrict__ scales,
                                           long long n, int d,
                                           long long q_stride,
+                                          long long row_offset,
                                           uint32_t seed_key) {
   const int lane = threadIdx.x & 31;
   const long long row =
@@ -170,7 +173,7 @@ __global__ void quantize_rows_warp_kernel(const float* __restrict__ x,
     absmax = fmaxf(absmax, __shfl_xor_sync(0xffffffffu, absmax, off));
 
   const float scale = fmaxf(absmax, 1e-12f) * kInv127;
-  const uint32_t base = (uint32_t)row * (uint32_t)d;
+  const uint32_t base = (uint32_t)(row + row_offset) * (uint32_t)d;
   int8_t* qr = q + row * q_stride;
   for (int c = lane; c < d; c += 32)
     qr[c] = (int8_t)quantize_one<MODE>(xr[c], scale, base + (uint32_t)c, seed_key);
@@ -198,6 +201,7 @@ struct Args {
   long long n;
   int d;
   long long q_stride;
+  long long row_offset;
   uint32_t seed_key;
   cudaStream_t stream;
 };
@@ -208,7 +212,7 @@ void launch_warp(const Args& a) {
   quantize_rows_warp_kernel<MODE>
       <<<(unsigned int)blocks, kWarpsPerBlock * 32, 0, a.stream>>>(
           (const float*)a.x, (int8_t*)a.q, a.scales, a.n, a.d, a.q_stride,
-          a.seed_key);
+          a.row_offset, a.seed_key);
 }
 
 template <int MODE, int GROUP, int VPL, int ROWS>
@@ -229,7 +233,7 @@ void launch_vec(const Args& a) {
   quantize_rows_vec_kernel<MODE, GROUP, VPL, ROWS>
       <<<(unsigned int)blocks, kBlockThreads, 0, a.stream>>>(
           (const float4*)a.x, (uint32_t*)a.q, a.scales, a.n, a.d / 4,
-          a.q_stride / 4, a.seed_key);
+          a.q_stride / 4, a.row_offset, a.seed_key);
 }
 
 // One float4 a lane.  Several rows in flight only when every SM still
@@ -265,16 +269,19 @@ void launch_mode(const Args& a) {
 
 // Quantize x [n, d] float32 (contiguous) into q (int8, rows q_stride bytes
 // apart) and scales [n] on `stream`.  mode: 0 stochastic (seed used), 1
-// round to nearest.  Returns cudaGetLastError() (0 on success), or
+// round to nearest.  row_offset (>= 0) is added to every row in the random
+// counter, so a shard that starts at global row row_offset draws the bits
+// that the whole table draws there.  Returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a mode or stride it does not know.
 extern "C" int quantize_rows_int8_launch(const void* x, void* q, void* scales,
                                          long long n, int d,
                                          long long q_stride, int mode,
-                                         uint32_t seed, void* stream) {
+                                         uint32_t seed, long long row_offset,
+                                         void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  if (q_stride < d || (mode != kStochastic && mode != kNearest))
+  if (q_stride < d || row_offset < 0 || (mode != kStochastic && mode != kNearest))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, q, (float*)scales, n, d, q_stride, triple32(seed),
+  const Args a{x, q, (float*)scales, n, d, q_stride, row_offset, triple32(seed),
                (cudaStream_t)stream};
   if (mode == kStochastic)
     launch_mode<kStochastic>(a);
@@ -289,7 +296,7 @@ extern "C" int quantize_rows_int8_launch_v1(const void* x, void* q,
                                             void* scales, long long n, int d,
                                             uint32_t seed, void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  launch_warp<kStochastic>(Args{x, q, (float*)scales, n, d, (long long)d,
+  launch_warp<kStochastic>(Args{x, q, (float*)scales, n, d, (long long)d, 0,
                                 triple32(seed), (cudaStream_t)stream});
   return (int)cudaGetLastError();
 }

@@ -154,14 +154,20 @@ def bucket_by_degree(
     num_nodes: int,
     dense_threshold: Optional[int] = None,
     max_dense_bytes: int = 512 * 1024 * 1024,
+    num_src_nodes: Optional[int] = None,
 ) -> Tuple[List[EllBucket], np.ndarray, np.ndarray, np.ndarray]:
     """Degree-bucketed ELL view (+ dense hub rows) from dst-sorted edges.
 
     Nodes of degree > ``dense_threshold`` (default 128) become rows of a
-    dense ``[H, num_nodes]`` f32 matrix, aggregated by one matrix product;
-    the threshold is raised until that matrix fits ``max_dense_bytes``.
+    dense ``[H, num_src_nodes]`` f32 matrix, aggregated by one matrix
+    product; the threshold is raised until that matrix fits
+    ``max_dense_bytes``.  ``num_src_nodes`` (default ``num_nodes``) is the
+    source id space: a shard's rows over the whole graph's columns
+    (``parallel/halo.py::shard_ell``).
     Returns (buckets, gather_idx, dense_node_ids, dense_mat).
     """
+    if num_src_nodes is None:
+        num_src_nodes = num_nodes
     deg = np.bincount(dst_sorted, minlength=num_nodes).astype(np.int64)
     row_start = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(deg, out=row_start[1:])
@@ -171,7 +177,7 @@ def bucket_by_degree(
     while True:
         hub_mask = deg > dense_threshold
         if (
-            hub_mask.sum() * num_nodes * 4 <= max_dense_bytes
+            hub_mask.sum() * num_src_nodes * 4 <= max_dense_bytes
             or dense_threshold >= max(int(deg.max()), 1)
         ):
             break
@@ -179,7 +185,7 @@ def bucket_by_degree(
         dense_threshold = dense_threshold * 2 if dense_threshold > 0 else 1
     dense_node_ids = np.flatnonzero(hub_mask).astype(np.int64)
     h = len(dense_node_ids)
-    dense_mat = np.zeros((h, num_nodes), dtype=np.float32)
+    dense_mat = np.zeros((h, num_src_nodes), dtype=np.float32)
     if h:
         lengths = deg[dense_node_ids]
         starts = row_start[dense_node_ids]

@@ -34,11 +34,11 @@ NVCC_FLAGS = [
 # name -> (argtypes, restype) of the launcher
 _SIGNATURES = {
     "quant_int8": {
-        # x, q, scales, n, d, q_stride, mode, seed, stream
+        # x, q, scales, n, d, q_stride, mode, seed, row_offset, stream
         "quantize_rows_int8_launch": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_uint32, ctypes.c_void_p],
+             ctypes.c_uint32, ctypes.c_int64, ctypes.c_void_p],
             ctypes.c_int,
         ),
         "quantize_rows_int8_launch_v1": (

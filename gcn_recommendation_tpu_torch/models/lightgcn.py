@@ -261,17 +261,42 @@ class LightGCN(nn.Module):
         final = (acc / (self.n_layers + 1)).to(ego.dtype)
         return self._split_final(final)
 
-    def _split_final(self, final: torch.Tensor):
+    def _split_final(self, final: torch.Tensor, gather_table=None):
         """Slice the propagated block back into logical-size (final_user,
-        final_item, final_brand, user0, item0); item0 is the ID table."""
+        final_item, final_brand, user0, item0); item0 is the ID table.
+        ``gather_table`` maps a stored table to the whole padded table (a
+        model whose tables hold one rank's rows, ``parallel/``)."""
         up, ip = self.num_users_pad, self.num_items_pad
+        user0, item0 = self.user_embedding, self.item_embedding
+        if gather_table is not None:
+            user0, item0 = gather_table(user0), gather_table(item0)
         return (
             final[: self.num_users],
             final[up : up + self.num_items],
             final[up + ip : up + ip + self.num_brands],
-            self.user_embedding[: self.num_users],
-            self.item_embedding[: self.num_items],
+            user0[: self.num_users],
+            item0[: self.num_items],
         )
+
+    def apply_with_propagator(self, propagator, num_nodes_pad: int):
+        """Forward pass through an external propagator that computes the
+        whole mean over layers in one call (``parallel/halo.py``'s
+        ``make_halo_propagator``): ``propagator(ego [num_nodes_pad, d]) ->
+        final [num_nodes_pad, d]``.  Same returns as ``forward``."""
+        num_nodes = self.num_users_pad + self.num_items_pad + self.num_brands_pad
+        ego = torch.cat(self._initial_tables(), dim=0)
+        if num_nodes_pad > num_nodes:
+            ego = torch.cat([ego, ego.new_zeros((num_nodes_pad - num_nodes, ego.shape[1]))])
+        return self._split_final(propagator(ego)[:num_nodes])
+
+    def apply_with_table_propagator(self, propagator, gather_table=None):
+        """Forward pass through a propagator that takes the three layer-0
+        tables apart, ``propagator(user, item, brand) -> final [N_pad, d]``:
+        the sharded schedules, whose tables hold this rank's rows and enter
+        the propagator row-sharded (the fused item rows for
+        ``LightGCN_Fusion``).  ``gather_table`` assembles the ID tables for
+        the layer-0 outputs.  Same returns as ``forward``."""
+        return self._split_final(propagator(*self._initial_tables()), gather_table)
 
 
 def debug_diagnostics(

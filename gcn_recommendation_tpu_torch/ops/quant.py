@@ -75,10 +75,12 @@ def triple32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> s[3])
 
 
-def random_bits(n: int, d: int, seed: int, device=None) -> torch.Tensor:
+def random_bits(n: int, d: int, seed: int, device=None, row_offset: int = 0) -> torch.Tensor:
     """``[n, d]`` int64 tensor of the uint32 bits the kernel draws for
-    element (row, col): ``triple32((row * d + col) ^ triple32(seed))``."""
+    element (row, col): ``triple32((row * d + col) ^ triple32(seed))``,
+    with ``row`` the global row ``row_offset + local row``."""
     counter = torch.arange(n * d, dtype=torch.int64, device=device).reshape(n, d)
+    counter = counter + int(row_offset) * d
     key = triple32(torch.tensor(int(seed) & _U32, dtype=torch.int64, device=device))
     return triple32((counter & _U32) ^ key)
 
@@ -97,11 +99,12 @@ def _quantize_with_uniform(x: torch.Tensor, u) -> Tuple[torch.Tensor, torch.Tens
     return rounded.clamp(-127.0, 127.0).to(torch.int8), scale
 
 
-def _quantize_rows_int8_reference(x: torch.Tensor, seed: int = 0):
+def _quantize_rows_int8_reference(x: torch.Tensor, seed: int = 0, row_offset: int = 0):
     """Plain PyTorch version of the CUDA kernel (same bits, same
-    arithmetic); runs on any device."""
+    arithmetic); runs on any device.  ``row_offset``: the global row of
+    ``x``'s first row."""
     n, d = x.shape
-    bits = random_bits(n, d, seed, device=x.device)
+    bits = random_bits(n, d, seed, device=x.device, row_offset=row_offset)
     u = (bits >> 8).to(torch.float32) * _U24_SCALE
     return _quantize_with_uniform(x, u)
 
@@ -171,7 +174,7 @@ def _empty_out(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.empty((n, 1), dtype=torch.float32, device=x.device))
 
 
-def _launch_quantizer(wrapper, x: torch.Tensor, mode: int, seed: int, out):
+def _launch_quantizer(wrapper, x: torch.Tensor, mode: int, seed: int, out, row_offset: int = 0):
     """Launch csrc/quant_int8.cu on ``x``'s device and the calling
     thread's current stream, and add one to ``wrapper.launches``; raises
     when the kernel cannot take ``x`` or the launch is refused.  Returns
@@ -192,11 +195,11 @@ def _launch_quantizer(wrapper, x: torch.Tensor, mode: int, seed: int, out):
     index = x.device.index
     if index == torch.cuda.current_device():
         err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, d, q.stride(0),
-                 mode, seed & _U32, _raw_stream(index))
+                 mode, seed & _U32, row_offset, _raw_stream(index))
     else:
         with torch.cuda.device(index):
             err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, d, q.stride(0),
-                     mode, seed & _U32, _raw_stream(index))
+                     mode, seed & _U32, row_offset, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"quant_int8 kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -215,7 +218,7 @@ def _write_out(result, x: torch.Tensor, out):
 
 
 def quantize_rows_int8(
-    x: torch.Tensor, seed: int = 0, use_kernel: bool = True, out=None
+    x: torch.Tensor, seed: int = 0, use_kernel: bool = True, out=None, row_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise int8 quantization of ``x`` [N, d] float32.
 
@@ -225,13 +228,19 @@ def quantize_rows_int8(
     round-to-nearest with the divided scale, on any device.  ``out=(q,
     scales)``: buffers the caller owns, written in place and returned
     (``q``'s rows may be strided), so the call allocates nothing.
+    ``row_offset``: the global row of ``x``'s first row in the random
+    counter; a shard of a table that starts there gets the codes of the
+    whole table's rows (stochastic mode).
     """
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
     if not use_kernel:
         return _write_out(_quantize_rows_int8_nearest(x), x, out)
     if x.device.type == "cuda":
-        return _launch_quantizer(quantize_rows_int8, x, _MODE_STOCHASTIC, int(seed), out)
+        return _launch_quantizer(quantize_rows_int8, x, _MODE_STOCHASTIC, int(seed), out,
+                                 int(row_offset))
     if x.device.type == "cpu":
-        return _write_out(_quantize_rows_int8_reference(x, seed), x, out)
+        return _write_out(_quantize_rows_int8_reference(x, seed, row_offset), x, out)
     raise ValueError(f"quantize_rows_int8: unsupported device {x.device}")
 
 
@@ -298,6 +307,27 @@ def _int8_scores(u_q: torch.Tensor, item_q: torch.Tensor) -> torch.Tensor:
     return u_q.to(torch.int32) @ item_q.to(torch.int32).T
 
 
+def quantized_scores(
+    user_emb_batch: torch.Tensor,  # [B, d] float32
+    item_q: torch.Tensor,          # [I, d] int8, or padded by pad_int8_table
+    item_scale: torch.Tensor,      # [I, 1] float32
+    user_buffers=None,
+) -> torch.Tensor:
+    """[B, I] float32 scores against an int8 item table: the user batch is
+    quantized round-to-nearest per row (``quantize_users_int8``: one kernel
+    launch on the card), scores are int8 x int8 -> int32, rescaled as
+    ``s32 * u_scale * item_scale.T`` (the JAX order).  ``user_buffers``:
+    what ``alloc_user_buffers(B, d, device)`` returned, kept by the caller."""
+    b, d = user_emb_batch.shape
+    n = item_scale.shape[0]
+    if user_buffers is None:
+        user_buffers = alloc_user_buffers(b, d, user_emb_batch.device)
+    codes, u_scale = user_buffers
+    quantize_users_int8(user_emb_batch, out=(codes[:b, :d], u_scale))
+    s32 = _int8_scores(codes, pad_int8_table(item_q))[:b, :n]
+    return s32.to(torch.float32) * u_scale * item_scale[:, 0][None, :]
+
+
 def quantized_topk_scores(
     user_emb_batch: torch.Tensor,  # [B, d] float32
     item_q: torch.Tensor,          # [I, d] int8, or padded by pad_int8_table
@@ -306,17 +336,6 @@ def quantized_topk_scores(
     k: int,
     user_buffers=None,
 ):
-    """Masked top-k over an int8 item table: the user batch is quantized
-    round-to-nearest per row (``quantize_users_int8``: one kernel launch
-    on the card), scores are int8 x int8 -> int32, rescaled as ``s32 *
-    u_scale * item_scale.T`` (the JAX order).  ``user_buffers``: what
-    ``alloc_user_buffers(B, d, device)`` returned, kept by the caller."""
-    b, d = user_emb_batch.shape
-    n = item_scale.shape[0]
-    if user_buffers is None:
-        user_buffers = alloc_user_buffers(b, d, user_emb_batch.device)
-    codes, u_scale = user_buffers
-    quantize_users_int8(user_emb_batch, out=(codes[:b, :d], u_scale))
-    s32 = _int8_scores(codes, pad_int8_table(item_q))[:b, :n]
-    scores = s32.to(torch.float32) * u_scale * item_scale[:, 0][None, :]
+    """Masked top-k over an int8 item table (``quantized_scores``)."""
+    scores = quantized_scores(user_emb_batch, item_q, item_scale, user_buffers)
     return masked_topk(scores, filter_idx, k)

@@ -101,6 +101,21 @@ def topk_hit_metrics(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: to
     return (hit.float() * validf).sum(), (ndcg * validf).sum(), validf.sum()
 
 
+def merge_topk_candidates(all_vals: torch.Tensor, all_idx: torch.Tensor, k: int):
+    """Re-select the global top-k from per-shard candidates.
+
+    ``all_vals`` / ``all_idx`` are ``[m, B, k]`` stacks (one slice per item
+    shard, global indices); returns ([B, k] values, [B, k] indices).  The
+    candidates are flattened shard-major and selected with a stable sort,
+    so tied scores resolve in ``lax.top_k``'s order (earlier shard, then
+    earlier slot, first)."""
+    m, b, kk = all_vals.shape
+    cand_vals = all_vals.permute(1, 0, 2).reshape(b, m * kk)
+    cand_idx = all_idx.permute(1, 0, 2).reshape(b, m * kk)
+    best_vals, pos = _topk(cand_vals, k, stable=True)
+    return best_vals, cand_idx.gather(1, pos)
+
+
 def topk_eval_batch(user_emb, item_emb, users, true_items, filter_idx, valid, k: int):
     """One evaluation batch: masked top-k of the batch users' scores in
     ``lax.top_k``'s tie order, then its (recall_sum, ndcg_sum, count)."""

@@ -1,7 +1,6 @@
 """Retrieval serving: precomputed embeddings -> top-k recommendations.
 
-PyTorch counterpart of ``gcn_recommendation_tpu/serve.py`` (single
-device; the sharded catalog waits for the multi-device slice):
+PyTorch counterpart of ``gcn_recommendation_tpu/serve.py``:
 
 * one propagation at load time (``Retriever.from_params``);
 * ``recommend(user_ids, k)`` — masked full-catalog top-k per user batch,
@@ -10,7 +9,16 @@ device; the sharded catalog waits for the multi-device slice):
   ``ops.quant.quantize_rows_int8`` (the CUDA kernel on the card) and
   padded for the int8 product once, here; scores as int8 x int8 -> int32,
   each request's users quantized by the same kernel's nearest mode into
-  buffers kept per request shape.
+  buffers kept per request shape;
+* optional ``mesh`` (``core/mesh.py``): the catalog is padded to
+  ``n_model * 8`` rows and row-sharded over the model axis, and every
+  request scores through the distributed local top-k and all-gather merge
+  (``parallel/spmd.py``).  With ``quantize`` each rank quantizes only its
+  own shard, with the kernel's row offset at the shard's first row, so the
+  sharded int8 catalog is bit-equal to the single-device one.  Every rank
+  of the mesh makes the same calls in the same order (they meet in
+  collectives); the serving daemon does that with a leader and followers
+  (``server.py``).
 
 A ``Retriever`` serves one caller at a time: its int8 user buffers are
 reused from request to request (in stream order, so enqueueing several
@@ -58,14 +66,25 @@ class Retriever:
         item_emb: torch.Tensor,
         bundle: DataBundle,
         quantize: bool = False,
+        mesh=None,
     ):
         """``user_emb`` / ``item_emb`` live on the serving device; every
-        request runs there."""
+        request runs there.  ``mesh``: this rank's view of a ('data',
+        'model') mesh; the catalog is then this rank's shard."""
         self.device = item_emb.device
         self.num_items = int(item_emb.shape[0])
         self.quantized = quantize
+        self.mesh = mesh
+        row_offset = 0
+        if mesh is not None:
+            from gcn_recommendation_tpu_torch.core.mesh import MODEL_AXIS
+            from gcn_recommendation_tpu_torch.parallel.spmd import catalog_shard
+
+            item_emb = catalog_shard(item_emb, mesh)
+            row_offset = mesh.coordinate(MODEL_AXIS) * item_emb.shape[0]
         if quantize:
-            item_q, self.item_scale = quantize_rows_int8(item_emb.contiguous())
+            item_q, self.item_scale = quantize_rows_int8(
+                item_emb.contiguous(), row_offset=row_offset)
             # padded once for the int8 product, not at every request
             self.item_q = pad_int8_table(item_q)
             self.item_emb = None
@@ -82,18 +101,20 @@ class Retriever:
 
     @classmethod
     @torch.no_grad()
-    def from_params(cls, model, params, bundle: DataBundle, quantize: bool = False):
+    def from_params(cls, model, params, bundle: DataBundle, quantize: bool = False,
+                    mesh=None):
         """Load ``params`` (logical or padded shapes) into ``model``,
         propagate once on the model's device (over the padded node space
         when the model is row-padded), and build a retriever from the
-        final embeddings, which have logical rows."""
+        final embeddings, which have logical rows.  With ``mesh`` every
+        rank propagates alike and keeps its shard of the catalog."""
         model.load_params(params)
         graph = to_device_graph_auto(
             model.padded_graph(bundle.graph), compute_dtype=model.compute_dtype,
             device=model.device,
         )
         fu, fi, *_ = model(graph)
-        return cls(fu, fi, bundle, quantize=quantize)
+        return cls(fu, fi, bundle, quantize=quantize, mesh=mesh)
 
     def _filter_batch(self, users: np.ndarray, filter_seen: bool) -> torch.Tensor:
         """[B_pad, F] int64 padded seen-item lists at bucketed width, on
@@ -125,11 +146,26 @@ class Retriever:
         users_pad[:n_req] = users
         filt = self._filter_batch(users_pad, filter_seen)
         u = self.user_emb.index_select(0, torch.from_numpy(users_pad).to(self.device))
+        buffers = None
         if self.quantized:
             buffers = self._user_buffers.get(b_pad)
             if buffers is None:
                 buffers = self._user_buffers[b_pad] = alloc_user_buffers(
                     b_pad, u.shape[1], self.device)
+        if self.mesh is not None:
+            from gcn_recommendation_tpu_torch.parallel.spmd import (
+                sharded_quantized_topk_batch,
+                sharded_topk_eval_batch,
+            )
+
+            if self.quantized:
+                vals, idx = sharded_quantized_topk_batch(
+                    self.mesh, u, self.item_q, self.item_scale, filt, k,
+                    num_valid_items=self.num_items, user_buffers=buffers)
+            else:
+                vals, idx = sharded_topk_eval_batch(
+                    self.mesh, u, self.item_emb, filt, k, num_valid_items=self.num_items)
+        elif self.quantized:
             vals, idx = quantized_topk_scores(
                 u, self.item_q, self.item_scale, filt, k, user_buffers=buffers)
         else:

@@ -35,6 +35,14 @@ Endpoints:
 
 Run: ``python -m gcn_recommendation_tpu_torch serve --processed_dir ...
 [--port 8000] [--int8] [--device cpu]``.
+
+On a mesh (``serve --mesh DATA,MODEL``, one process per device), the
+JAX daemon's single controller becomes a leader and followers: the HTTP
+server and the ``Dispatcher`` live on rank 0, whose retriever is a
+``MeshLeader``.  Before each dispatch, each reload and at shutdown, rank
+0 broadcasts a small header (op, n, k, filter_seen) and then the user
+ids; every other rank runs ``follow``, which makes the same call and so
+joins the same collectives.  An error in a follower ends its process.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclass
@@ -387,10 +396,14 @@ class RecommendServer:
                  timeout_s: float = 60.0, max_request_users: int = 8192,
                  reload_fn: Optional[Callable[[], object]] = None,
                  reload_timeout_s: float = 600.0,
-                 warm: Optional[Tuple[int, int]] = None):
+                 warm: Optional[Tuple[int, int]] = None,
+                 on_stop: Optional[Callable[[], None]] = None):
         """``reload_fn``: zero-arg callable returning a fresh Retriever
         (typically: restore the newest checkpoint + re-propagate); wired
-        to ``POST /reload`` and executed on the dispatcher thread."""
+        to ``POST /reload`` and executed on the dispatcher thread.
+        ``on_stop``: called once the dispatcher has stopped (a mesh
+        leader's shutdown announcement)."""
+        self.on_stop = on_stop
         self.dispatcher = Dispatcher(retriever, max_coalesce=max_coalesce,
                                      warm=warm)
         handler = _make_handler(
@@ -409,7 +422,13 @@ class RecommendServer:
             self.httpd.serve_forever()
         finally:
             self.httpd.server_close()
-            self.dispatcher.stop()
+            self._stop_dispatcher()
+
+    def _stop_dispatcher(self):
+        self.dispatcher.stop()
+        if self.on_stop is not None:
+            on_stop, self.on_stop = self.on_stop, None
+            on_stop()
 
     # --- test/in-process helpers ---
     def start_background(self):
@@ -422,4 +441,71 @@ class RecommendServer:
     def shutdown(self):
         self.httpd.shutdown()
         self.httpd.server_close()
-        self.dispatcher.stop()
+        self._stop_dispatcher()
+
+
+# --- a mesh of ranks: rank 0 leads, the others follow ---
+_OP_DISPATCH, _OP_RELOAD, _OP_STOP = 0, 1, 2
+
+
+def _announce(device, op: int, users=None, k: int = 0, filter_seen: bool = True):
+    """Rank 0: broadcast (op, n, k, filter_seen), then the n user ids."""
+    users = np.zeros(0, np.int64) if users is None else np.asarray(users, np.int64)
+    header = torch.tensor([op, len(users), k, int(filter_seen)], dtype=torch.int64,
+                          device=device)
+    dist.broadcast(header, src=0)
+    if len(users):
+        dist.broadcast(torch.from_numpy(users).to(device), src=0)
+
+
+def _receive(device):
+    """Every other rank: the next announcement as (op, users, k,
+    filter_seen)."""
+    header = torch.empty(4, dtype=torch.int64, device=device)
+    dist.broadcast(header, src=0)
+    op, n, k, filter_seen = header.tolist()
+    users = torch.empty(n, dtype=torch.int64, device=device)
+    if n:
+        dist.broadcast(users, src=0)
+    return op, users.cpu().numpy().astype(np.int32), k, bool(filter_seen)
+
+
+class MeshLeader:
+    """Rank 0's retriever on a mesh: it announces each call to the
+    other ranks, then makes it (the dispatcher thread is the only caller)."""
+
+    def __init__(self, retriever):
+        self.retriever = retriever
+        self.device = retriever.device
+        self.num_items = retriever.num_items
+
+    def recommend_many(self, requests, k: int = 20, filter_seen: bool = True):
+        users = np.concatenate([np.atleast_1d(np.asarray(u, np.int32)) for u in requests])
+        _announce(self.device, _OP_DISPATCH, users, k, filter_seen)
+        return self.retriever.recommend_many(requests, k, filter_seen)
+
+    def reload(self, build: Callable[[], object]):
+        """Every rank rebuilds its retriever; returns this leader."""
+        _announce(self.device, _OP_RELOAD)
+        self.retriever = build()
+        return self
+
+    def stop(self):
+        _announce(self.device, _OP_STOP)
+
+
+def follow(retriever, reload_fn: Callable[[], object]) -> None:
+    """The loop of a rank other than 0: wait for rank 0's announcement
+    and make the same call (``recommend`` of the coalesced users, a
+    rebuild), until rank 0 stops.  Runs under ``no_grad``."""
+    with torch.no_grad():
+        while True:
+            op, users, k, filter_seen = _receive(retriever.device)
+            if op == _OP_STOP:
+                return
+            if op == _OP_RELOAD:
+                retriever = reload_fn()
+            elif op == _OP_DISPATCH:
+                retriever.recommend(users, k=k, filter_seen=filter_seen)
+            else:
+                raise RuntimeError(f"unknown announcement {op} from rank 0")

@@ -116,7 +116,7 @@ def _launch(lib, x, mode, seed, q=None, scales=None):
         q, scales = quant._empty_out(x)
     err = lib.quantize_rows_int8_launch(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), x.shape[0], x.shape[1], q.stride(0),
-        mode, seed, torch.cuda.current_stream().cuda_stream)
+        mode, seed, 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
     return q, scales

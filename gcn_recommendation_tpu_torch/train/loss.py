@@ -34,7 +34,12 @@ def bpr_loss_reg(
     pos_item_brand_idx: Optional[torch.Tensor] = None,  # [B], -1 = no brand
     neg_item_brand_idx: Optional[torch.Tensor] = None,  # [B]
     brand_loss_weight: float = 0.1,
+    brand_denom: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """``brand_denom`` replaces the brand term's divisor (this batch's
+    count of valid pairs): a data-parallel rank that holds a slice of the
+    batch passes the whole batch's count over the data-axis size, so the
+    mean of the ranks' losses is the whole batch's loss."""
     pos_scores = (final_user_emb * final_pos_item_emb).sum(dim=1)
     neg_scores = (final_user_emb * final_neg_item_emb).sum(dim=1)
     bpr = -torch.log(torch.sigmoid(pos_scores - neg_scores) + EPS).mean()
@@ -47,7 +52,7 @@ def bpr_loss_reg(
         brand_pos = (final_user_emb * pos_brand).sum(dim=1)
         brand_neg = (final_user_emb * neg_brand).sum(dim=1)
         per_pair = -torch.log(torch.sigmoid(brand_pos - brand_neg) + EPS)
-        denom = valid.sum().clamp_min(1)
+        denom = valid.sum().clamp_min(1) if brand_denom is None else brand_denom
         brand_val = torch.where(valid, per_pair, torch.zeros_like(per_pair)).sum() / denom
         loss = loss + brand_loss_weight * brand_val
 

@@ -25,6 +25,14 @@ PyTorch counterpart of ``gcn_recommendation_tpu/train/trainer.py``
 
 A Python loop over steps takes the place of the JAX package's
 ``lax.scan``; the step losses stay on the device until the epoch ends.
+``Config.debug_nans`` runs each step under ``torch.autograd.detect_anomaly``
+and stops at the first non-finite loss, naming its epoch and step.
+
+The sharded trainers of ``parallel/`` override the hooks: where the
+state lives (``_load_model_params``, ``_import_tree``, ``_export_tree``,
+``params``), the graph (``_device_graph``), the forward (``_forward``),
+the batch (``batch_loss``), the gradient and loss reductions, and
+validation.
 With ``Config.tile_spmm`` the propagation runs over the block-sparse tile
 partition (``ops/block_spmm.py``, the ``csrc/tile_spmm.cu`` kernel three
 times forward and three times backward per step at 3 layers).
@@ -87,6 +95,8 @@ class Trainer:
         steps = max(1, -(-self.n_train // config.batch_size))
         self.steps_per_epoch = min(10, steps) if config.debug else steps
         self._eval_batches = None  # built at the first validation, then reused
+        self._epoch = 0  # the epoch being run, for the --debug_nans message
+        self._print = print  # progress lines (a sharded run prints on rank 0 only)
 
     def _device_graph(self):
         """The ELL device graph, or the tile partition's TiledDeviceGraph
@@ -130,10 +140,15 @@ class Trainer:
             self.generator, users, self.pos_keys, num_items=self.bundle.num_items
         )
 
-    def batch_loss(self, users, pos, neg) -> torch.Tensor:
+    def _forward(self):
+        """(final_user, final_item, final_brand, user0, item0) of the
+        model's current tables, differentiable."""
+        return self.model(self.graph)
+
+    def batch_loss(self, users, pos, neg, brand_denom=None) -> torch.Tensor:
         """The loss of one batch after a full forward (differentiable)."""
         cfg = self.config
-        fu_all, fi_all, fb_all, u0_all, i0_all = self.model(self.graph)
+        fu_all, fi_all, fb_all, u0_all, i0_all = self._forward()
         fu = fu_all.index_select(0, users)
         fp = fi_all.index_select(0, pos)
         fn = fi_all.index_select(0, neg)
@@ -146,18 +161,36 @@ class Trainer:
                 brand_loss=True, final_brand_emb=fb_all,
                 pos_item_brand_idx=self.item_to_brand.index_select(0, pos),
                 neg_item_brand_idx=self.item_to_brand.index_select(0, neg),
-                brand_loss_weight=cfg.brand_loss_weight,
+                brand_loss_weight=cfg.brand_loss_weight, brand_denom=brand_denom,
             )
         return bpr_loss_reg(fu, fp, fn, iu, ip, in_, cfg.weight_decay)
 
-    def train_step(self, users, pos, neg) -> torch.Tensor:
+    def _reduce_gradients(self) -> None:
+        """Combine the gradients of the ranks that share the step (none
+        on one device)."""
+
+    def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The whole batch's loss from this rank's share (itself here)."""
+        return loss
+
+    def train_step(self, users, pos, neg, step: int = 0) -> torch.Tensor:
         """One Adam step on one batch (int64 index tensors on the device);
-        returns the batch loss as a device scalar."""
+        returns the batch loss as a device scalar.  ``step`` names the step
+        in the ``debug_nans`` message."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.batch_loss(users, pos, neg)
-        loss.backward()
+        if self.config.debug_nans:
+            with torch.autograd.detect_anomaly():
+                loss = self.batch_loss(users, pos, neg)
+                if not torch.isfinite(loss).item():
+                    raise FloatingPointError(
+                        f"debug_nans: loss {loss.item()} at epoch {self._epoch} step {step}")
+                loss.backward()
+        else:
+            loss = self.batch_loss(users, pos, neg)
+            loss.backward()
+        self._reduce_gradients()
         self.optimizer.step()
-        return loss.detach()
+        return self._reduce_loss(loss.detach())
 
     def run_epoch(self) -> np.ndarray:
         """One shuffled epoch; returns the per-step losses."""
@@ -172,20 +205,46 @@ class Trainer:
         losses = []
         for s in range(n_steps):
             n = neg[s] if presample else self.sample_negatives(users[s])
-            losses.append(self.train_step(users[s], pos[s], n))
+            losses.append(self.train_step(users[s], pos[s], n, step=s))
         return torch.stack(losses).cpu().numpy()
+
+    # --- where the state lives ---
+    def _draw_params(self):
+        """Fresh logical params (Xavier uniform from ``config.seed``)."""
+        return self.model._draw_params(torch.Generator().manual_seed(self.config.seed))
+
+    def _load_model_params(self, params) -> None:
+        """Put a params dict (logical or padded shapes) into the model."""
+        self.model.load_params(params)
+
+    def _import_tree(self, tree):
+        """A logical tree (params, or Adam moments keyed like them) in the
+        layout this trainer stores."""
+        return self.model.pad_state_tree(tree)
+
+    def _export_tree(self, tree):
+        """The logical tree of a stored one (checkpoints are logical)."""
+        return self.model.unpad_state_tree(tree)
+
+    def params(self):
+        """The model's whole params, padded rows included."""
+        return self.model.params()
 
     def init_state(self) -> None:
         """Fresh tables (Xavier uniform from ``config.seed``), fresh Adam
         moments and a reseeded sampling generator."""
-        self.model.init(torch.Generator().manual_seed(self.config.seed))
+        self._load_model_params(self._draw_params())
         self.optimizer = self._make_optimizer()
         self.generator.manual_seed(self.config.seed + 1)
 
     @torch.no_grad()
+    def _forward_eval(self):
+        return self._forward()
+
+    @torch.no_grad()
     def validate(self):
         """(Recall@k, NDCG@k) on the val split, train items filtered."""
-        fu, fi, *_ = self.model(self.graph)
+        fu, fi, *_ = self._forward_eval()
         if self._eval_batches is None:
             b = self.bundle
             self._eval_batches = build_eval_batches(
@@ -207,10 +266,9 @@ class Trainer:
 
     def save_checkpoint(self, ckpt_dir: str, tag: str, epoch: int, best_recall: float) -> None:
         """Write a checkpoint at logical shapes (pad rows sliced off)."""
-        unpad = self.model.unpad_state_tree
         ckpt.save_state(
-            ckpt_dir, tag, unpad(self.model.params()),
-            self._map_optimizer_tables(self.optimizer.state_dict(), unpad),
+            ckpt_dir, tag, self._export_tree(self.model.params()),
+            self._map_optimizer_tables(self.optimizer.state_dict(), self._export_tree),
             epoch, best_recall, self.generator.get_state(),
         )
 
@@ -222,25 +280,26 @@ class Trainer:
         start_epoch, best_recall = 1, 0.0
         if cfg.debug and self.model.has_debug_diagnostics:
             # the reference's debug-mode self-checks (models/lightgcn.py:49-78)
-            debug_diagnostics(self.model, self.model.params(), self.bundle.graph)
+            debug_diagnostics(self.model, self.params(), self.bundle.graph)
         ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.checkpoint_name())
         if resume:
             state = ckpt.load_state(ckpt_dir, "last")
             if state is not None:
-                self.model.load_params(state["params"])
+                self._load_model_params(state["params"])
                 self.optimizer.load_state_dict(
-                    self._map_optimizer_tables(state["optimizer"], self.model.pad_state_tree)
+                    self._map_optimizer_tables(state["optimizer"], self._import_tree)
                 )
                 self.generator.set_state(state["generator"])
                 start_epoch = state["epoch"] + 1
                 best_recall = state["best_recall"]
                 if self.logger is not None:
                     self.logger.set_start_step(self.steps_per_epoch * (start_epoch - 1))
-                print(f"Resumed from epoch {start_epoch - 1} "
+                self._print(f"Resumed from epoch {start_epoch - 1} "
                       f"(best recall {best_recall:.4f})")
 
         examples_per_epoch = self.steps_per_epoch * cfg.batch_size
         for epoch in range(start_epoch, cfg.epochs + 1):
+            self._epoch = epoch
             t0 = time.perf_counter()
             with trace(f"epoch_{epoch}"):  # a no-op unless GCN_TPU_TRACE_DIR is set
                 losses = self.run_epoch()  # ends in a copy to the host
@@ -250,21 +309,21 @@ class Trainer:
                 for loss in losses:
                     self.logger.log_batch_loss(float(loss))
                 self.logger.log_throughput(examples_per_epoch / dt)
-            print(f"Epoch {epoch}/{cfg.epochs}, Average Loss: {avg_loss:.4f} "
+            self._print(f"Epoch {epoch}/{cfg.epochs}, Average Loss: {avg_loss:.4f} "
                   f"({examples_per_epoch / dt:,.0f} ex/s)")
 
             if epoch % cfg.val_interval == 0:
                 recall, ndcg = self.validate()
-                print(f"Epoch {epoch} | Val Recall@{cfg.top_k}: {recall:.4f}, "
+                self._print(f"Epoch {epoch} | Val Recall@{cfg.top_k}: {recall:.4f}, "
                       f"Val NDCG@{cfg.top_k}: {ndcg:.4f}")
                 if self.logger is not None:
                     self.logger.log_epoch_metrics(epoch, avg_loss, recall, ndcg)
                 if recall > best_recall:
                     best_recall = recall
                     self.save_checkpoint(ckpt_dir, "best", epoch, best_recall)
-                    print("New best model saved...")
+                    self._print("New best model saved...")
                 self.save_checkpoint(ckpt_dir, "last", epoch, best_recall)
 
         if self.logger is not None:
             self.logger.save(total_epochs=cfg.epochs)
-        return self.model.params(), best_recall
+        return self.params(), best_recall

@@ -386,3 +386,60 @@ def test_fusion_step_and_serving_on_card(card, bundle, mult):
     assert quant.quantize_rows_int8.launches == before + 1
     v, i = r.recommend(np.unique(bundle.train.user_idx)[:16], k=10)
     assert v.shape == (16, 10) and np.isfinite(v).all() and i.max() < bundle.num_items
+
+
+@pytest.mark.parametrize("n,d", [(20_000, 64), (1_000, 48), (37, 50)])
+def test_quantizer_row_offset_matches_plain_on_card(card, n, d):
+    """The kernel's ``row_offset``: stochastic codes of a shard that starts
+    at a global row equal the plain version's and the whole table's rows;
+    the nearest mode draws no bits, so the offset changes nothing."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((n, d), generator=gen, device=card)
+    q_all, s_all = quant.quantize_rows_int8(x, seed=9)
+    half = n // 2
+    q_k, s_k = quant.quantize_rows_int8(x[half:].contiguous(), seed=9, row_offset=half)
+    q_p, s_p = quant._quantize_rows_int8_reference(x[half:], seed=9, row_offset=half)
+    torch.cuda.synchronize()
+    assert torch.equal(q_k, q_p) and torch.equal(s_k, s_p)
+    assert torch.equal(q_k, q_all[half:]) and torch.equal(s_k, s_all[half:])
+    q_n, s_n = quant._launch_quantizer(quant.quantize_users_int8, x, quant._MODE_NEAREST, 0,
+                                       None, row_offset=half)
+    q_r, s_r = quant._quantize_users_int8_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q_n, q_r) and torch.equal(s_n, s_r)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "int8"])
+def test_world_of_one_sharded_retriever_on_card(card, bundle, quantize):
+    """A world of one over NCCL, mesh (1, 1): the sharded retriever answers
+    as the single-device one, with the int8 catalog bit-equal and the
+    quantizer launched once at load and once per request."""
+    from gcn_recommendation_tpu_torch.core import distributed
+    from gcn_recommendation_tpu_torch.core.mesh import MeshSpec, create_mesh
+
+    cfg = Config(embedding_dim=64, n_layers=3)
+    model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=card)
+    params = model.init(torch.Generator().manual_seed(0))
+    requests = [np.unique(bundle.train.user_idx)[:n].astype(np.int32) for n in (1, 64)]
+    single = Retriever.from_params(model, params, bundle, quantize=quantize)
+    want = [single.recommend(u, k=20) for u in requests]
+    distributed.initialize("cuda", mesh_spec=MeshSpec(1, 1))
+    try:
+        mesh = create_mesh(MeshSpec(1, 1))
+        assert torch.distributed.get_backend() == "nccl"
+        before = (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches)
+        r = Retriever.from_params(model, params, bundle, quantize=quantize, mesh=mesh)
+        got = [r.recommend(u, k=20) for u in requests]
+        launched = (quant.quantize_rows_int8.launches - before[0],
+                    quant.quantize_users_int8.launches - before[1])
+    finally:
+        distributed.shutdown()
+    for (v, i), (wv, wi) in zip(got, want):
+        np.testing.assert_array_equal(i, wi)
+        np.testing.assert_allclose(v, wv, rtol=1e-6)
+    assert launched == ((1, len(requests)) if quantize else (0, 0))
+    if quantize:
+        n = bundle.num_items
+        assert torch.equal(r.item_q[:n], single.item_q[:n])
+        assert torch.equal(r.item_scale[:n], single.item_scale[:n])

@@ -36,6 +36,33 @@ def test_port_lists_its_modules():
         assert f"{PKG}.{m}" in mods
 
 
+MESH_MODULES = ("core.mesh", "core.distributed", "parallel", "parallel.spmd", "parallel.halo",
+                "parallel.collectives", "parallel.drivers")
+
+
+def test_port_lists_its_mesh_modules():
+    mods = _port_modules()
+    for m in MESH_MODULES:
+        assert f"{PKG}.{m}" in mods
+
+
+def test_spawned_ranks_import_no_jax():
+    """A rank of a spawned world (the CPU tests' and the chip smoke test's
+    two-card worlds) loads the port and nothing of JAX, though this test
+    process has JAX loaded."""
+    import jax  # noqa: F401  - the parent has it; the ranks must not
+
+    from gcn_recommendation_tpu_torch.core.distributed import runtime_report
+    from gcn_recommendation_tpu_torch.core.mesh import run_local_world
+
+    report = run_local_world(2, runtime_report)
+    assert report["rank"] == 0 and report["world_size"] == 2
+    assert report["backend"] == "gloo" and report["device"] == "cpu"
+    assert PKG in report["packages"] and "torch" in report["packages"]
+    assert "jax" not in report["packages"]
+    assert "gcn_recommendation_tpu" not in report["packages"]
+
+
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import importlib, sys\n"
@@ -110,7 +137,7 @@ def test_cli_without_device_raises_without_cuda(tmp_path):
     from gcn_recommendation_tpu_torch import cli
 
     for mode in ("recommend", "train", "test", "serve"):
-        for extra in ([], ["--model_name", "LightGCN_Fusion"]):
+        for extra in ([], ["--model_name", "LightGCN_Fusion"], ["--mesh", "1,1"]):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 cli.main([mode, "--processed_dir", str(tmp_path), *extra])
 
@@ -121,7 +148,9 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
     import re
 
     for rel in ("server.py", "data/prepare.py", "utils/profiling.py", "cli.py",
-                "tools/exp_quant_call.py"):
+                "tools/exp_quant_call.py", "core/mesh.py", "core/distributed.py",
+                "parallel/__init__.py", "parallel/spmd.py", "parallel/halo.py",
+                "parallel/collectives.py", "parallel/drivers.py"):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
