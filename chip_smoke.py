@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: serving, training (both model
-families), the tile experiment, row padding and the HTTP serving daemon.
+families), the tile experiment, row padding, the HTTP serving daemon, the
+mesh and the propagation layouts.
 
     python3 chip_smoke.py
 
@@ -27,8 +28,8 @@ fails:
    then requests of 1, 7, 64 and 1024 users at k=20 through
    ``recommend``, ``recommend_pipelined`` and ``recommend_many``.
    Checked: finite scores, no seen item returned, pipelined and
-   micro-batched equal per-request results, the ELL propagation equal to
-   the ``propagate_coo`` oracle within 1e-5, int8 top-20 overlapping f32
+   micro-batched equal per-request results, the per-layer ELL propagation
+   equal to the ``propagate_coo`` oracle within 1e-5, int8 top-20 overlapping f32
    top-20 by >= 0.9, and the kernel launched during the int8 load;
 5. kernel check: ``tile_matvec`` in both layouts, compressed
    (``csrc/tile_gather_spmm.cu``) and dense (``csrc/tile_spmm.cu``), against
@@ -44,13 +45,17 @@ fails:
    call in a loop of eager calls, which the host bounds when the kernel is
    short;
 6. the training path: a ``Trainer`` with ``tile_spmm=True`` (auto layout:
-   the compressed kernel) and an ELL twin from the same params (dim 64, 3
+   the compressed kernel) and an ELL twin (the default ``Trainer``: the
+   merge-skip ``propagate_sum_ell``) from the same params (dim 64, 3
    layers, batch 2048) take the same 20 steps on the same batches and
    negatives.  Checked: finite losses, the two paths' per-step losses
    within rtol 2e-3, the loss falling, ``tile_matvec`` launched exactly 6
    times a step plus 3 for the validation forward, Recall@20 / NDCG@20 in
    [0, 1], and the ``best`` checkpoint serving a 64-user request through
-   ``Retriever``.  Then, measurement only and time-boxed: ms per step of
+   ``Retriever``.  A per-layer twin (``graph_fuse_layers=False``) takes
+   the same 20 steps from the same params: per-step losses within rtol
+   2e-5 of the fused run, final params within 1e-6; ms per step and peak
+   memory of each.  Then, measurement only and time-boxed: ms per step of
    the tile trainer at ``tile_min_fill`` 64, 32 and 16;
 7. the tile experiment (``tools/exp_block_tiles.py``: the dense kernel of
    phase 5 on dense, balanced tiles, 16 tiles in each of 384 row blocks, 564
@@ -77,8 +82,8 @@ fails:
    launched once, top-20 overlap >= 0.9);
 9. row padding: the phase-4 LightGCN params in a model with
    ``set_row_multiple`` 8 and 48 over the padded graph give final
-   embeddings within 1e-6 of the unpadded forward, on the ELL path and on
-   the tile path;
+   embeddings within 1e-6 of the unpadded forward, on the fused and the
+   per-layer ELL path and on the tile path;
 10. the serving daemon, f32 then int8 catalog: a ``best`` checkpoint of
    seeded weights on disk, the server built through ``cli.make_server``
    (port 0, ``--warm_batch 64``, ``--max_coalesce 16``), then over HTTP
@@ -101,9 +106,9 @@ fails:
 11. the multi-device layer (``core/mesh.py``, ``parallel/``) as a world of
    one process over NCCL with mesh (1, 1), both schedules forced
    (``auto`` takes neither at (1, 1)).  Training: a ``ShardedTrainer``
-   (gspmd) and a ``HaloTrainer`` take the 20 steps of phase 6's ELL
-   trainer (seed-42 params, the same batches and negatives), whose run is
-   repeated here as the reference: losses and final params within rtol
+   (gspmd) and a ``HaloTrainer`` take the 20 steps of phase 6's per-layer
+   ELL trainer (seed-42 params, the same batches and negatives), whose run
+   is repeated here as the reference: losses and final params within rtol
    1e-4 / atol 1e-6, ms per step and peak memory beside the single-device
    step.  Evaluation: ``evaluate_sharded`` against ``evaluate_embeddings``
    on the val split (recall rtol 1e-6, NDCG rtol 1e-5).  Retrieval: the
@@ -120,7 +125,29 @@ fails:
    destroyed at the end of the phase.  Measurement only: a
    ``torch.profiler`` window of each trainer's steps and of 20 requests of
    64 users on each retriever (device time by kernel, the host's busiest
-   ops, ``profile_mesh_*:`` lines).
+   ops, ``profile_mesh_*:`` lines);
+12. the layouts, on the books bundle at d = 64, 3 layers (``layouts:``,
+   ``knee_scan:``, ``bf16:``, ``native:`` lines): (a) ``propagate_sum_ell``
+   against the sum of three ``propagate_ell`` calls (<= 1e-5), the
+   gradients of ``sum(out**2)`` (<= 1e-4), bf16 storage against f32
+   (rtol and atol 0.05, f32 out), fwd+bwd ms of each, the views' bytes;
+   (b) the source-chunked layout at C = 2, 3, 4 against plain ELL
+   (forward <= 1e-5, gradient <= 1e-4, bf16 with f32 accumulation within
+   2e-2 of the scale), ``build_chunked_ell`` host seconds, ms of each;
+   (c) the gather-knee scan of ``tools/exp_gather_knee.py`` (72k = the
+   bundle, 180k, 400k, 1M nodes; f32 and bf16; plain ELL against C = 2
+   and 4, three repeats; every chunked result equal to plain), time-boxed
+   to 60 s, beside the ``GATHER_KNEE_ROWS`` the port uses; (d) the default
+   trainer at ``compute_dtype="bfloat16"``, phase 6's params and batches:
+   finite falling losses within rtol 2e-2 of the f32 run, ms per step and
+   peak memory beside f32; (e) ``test`` mode through the CLI's parser and
+   mode function on the fused trainer's checkpoint (one
+   ``propagate_sum_ell``), its Recall@20 / NDCG@20 equal to
+   ``Trainer.validate`` over the test split within rtol 1e-6; that
+   checkpoint serving 64 users from an int8 catalog (K2 once in each
+   mode, counted from 0); the native ETL library loaded, the bundle's
+   graph on it equal to numpy's (indices identical, weights rtol 1e-6),
+   the 20-core mask equal to numpy's, build seconds of each.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -131,6 +158,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -144,16 +172,18 @@ import torch
 
 from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.config import Config
+from gcn_recommendation_tpu_torch.data import native_ext
 from gcn_recommendation_tpu_torch.data.sampler import (
     epoch_batches,
     membership_arrays,
     sample_negatives,
 )
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
+from gcn_recommendation_tpu_torch.graph.build import build_chunked_ell, build_normalized_adjacency
 from gcn_recommendation_tpu_torch.graph.tiles import TILE, partition_tiles
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops import block_spmm, quant
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant, spmm
 from gcn_recommendation_tpu_torch.ops.spmm import (
     propagate_ell,
     to_device_graph,
@@ -161,7 +191,7 @@ from gcn_recommendation_tpu_torch.ops.spmm import (
 )
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.server import RecommendServer
-from gcn_recommendation_tpu_torch.tools import exp_block_tiles
+from gcn_recommendation_tpu_torch.tools import exp_block_tiles, exp_gather_knee
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 
@@ -195,6 +225,18 @@ DAEMON_MAX_USERS = 64
 DAEMON_SCORE_ATOL = 0.6e-4    # bodies carry scores rounded to 4 digits: half a unit of the
                               # last one, and the f32 noise of scores of order 0.1
 HTTP_TIMEOUT_S = 30
+FUSED_LOSS_RTOL = 2e-5        # fused vs per-layer trainer, per-step loss (tests/test_spmm.py:214)
+FUSED_PARAMS_ATOL = 1e-6      # and their params after the 20 steps
+LAYOUT_FWD_ATOL = 1e-5        # fused / chunked vs per-layer forward: same sums, other order
+LAYOUT_GRAD_ATOL = 1e-4       # their gradients of sum(out**2)
+LAYOUT_BF16_TOL = 0.05        # fused bf16 storage vs f32, rtol and atol (tests/test_spmm.py:473)
+CHUNK_BF16_RTOL = 2e-2        # chunked bf16 vs f32, x max|f32| (tests/test_spmm.py:251)
+LAYOUT_CHUNKS = (2, 3, 4)
+KNEE_SCAN_SIZES = (72_000, 180_000, 400_000, 1_000_000)   # the first: the books bundle
+KNEE_SCAN_BUDGET_S = 60.0
+BF16_LOSS_RTOL = 2e-2         # bf16 vs f32 training, per-step loss
+TEST_MODE_RTOL = 1e-6         # test mode vs Trainer.validate: the same sums
+NATIVE_RTOL = 1e-6            # native vs numpy weights: ~2 ULP (tests/test_native.py)
 KERNEL_SOURCE = {
     "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
     "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
@@ -492,7 +534,7 @@ def phase_path(dev, bundle, bundle_s):
 
     # propagation against the COO oracle, and its time
     with torch.no_grad():
-        graph = to_device_graph(g, include_coo=True, device=dev)
+        graph = to_device_graph(g, include_coo=True, device=dev, fuse_layers=False)
         ell = torch.cat([t for t in model(graph, path="ell")[:3]])
         coo = torch.cat([t for t in model(graph, path="coo")[:3]])
         diff = (ell - coo).abs().max().item()
@@ -647,7 +689,7 @@ def phase_tile_kernel_check(dev, bundle):
                   f"{block_spmm.AUTO_DENSE_MIN_FILL})")
         del shipped
     t0 = time.perf_counter()
-    to_device_graph(part.residual, device=dev)
+    to_device_graph(part.residual, device=dev, fuse_layers=False)
     torch.cuda.synchronize()
     print("upload: tiles " + ", ".join(
         f"{k} {s:.3f} s ({b / 1e6:.1f} MB on the card)" for k, (s, b) in upload.items())
@@ -664,8 +706,8 @@ def phase_tile_kernel_check(dev, bundle):
 
     # gradient of sum(out**2): tile partition (auto layout) vs the plain ELL path
     tiles = block_spmm.to_device_tiles(part, device=dev)
-    res = to_device_graph(part.residual, device=dev)
-    full = to_device_graph(g, device=dev)
+    res = to_device_graph(part.residual, device=dev, fuse_layers=False)
+    full = to_device_graph(g, device=dev, fuse_layers=False)
     x = emb.clone().requires_grad_(True)
     (g_tile,) = torch.autograd.grad(
         (block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
@@ -843,9 +885,51 @@ def _check_twin_run(name, losses, launches, recall, ndcg):
     return float(rel.max())
 
 
+class PerLayerTrainer(Trainer):
+    """The single-device trainer on the per-layer ELL path, without the
+    merge-skip views: phase 6's twin of the fused default and phase 11's
+    reference."""
+
+    graph_fuse_layers = False
+
+
+def _graph_gib(graph) -> float:
+    """Device GiB of every tensor a device graph holds."""
+    def walk(x):
+        if torch.is_tensor(x):
+            return x.numel() * x.element_size()
+        if isinstance(x, (tuple, list)):
+            return sum(walk(v) for v in x)
+        if dataclasses.is_dataclass(x):
+            return sum(walk(getattr(x, f.name)) for f in dataclasses.fields(x))
+        return 0
+    return walk(graph) / 2**30
+
+
+def _steps_alone(dev, bundle, tmp, cls, users, pos, neg, **cfg_kw):
+    """A ``cls`` trainer built from the seed-42 LightGCN params, then
+    ``TRAIN_STEPS`` steps (``_mesh_steps``): (losses, ms per step, GiB it
+    holds at the peak of the steps, graph and state included, the
+    trainer)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2**30
+    cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048, checkpoint_dir=tmp,
+                 results_dir=tmp, **cfg_kw)
+    model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=dev)
+    model.init(torch.Generator().manual_seed(42))
+    tr = cls(cfg, model, bundle)
+    losses, ms, peak = _mesh_steps(tr, users, pos, neg)
+    return losses, ms, peak - base, tr
+
+
 def phase_train(dev, bundle):
-    """Drive the training path with tiles and its ELL twin; returns the
-    tile kernel's launches on the path and the ms per step of each twin."""
+    """Drive the training path with tiles and its ELL twin (fused, the
+    default), then a per-layer twin; returns the tile kernel's launches on
+    the path, the ms per step of the first two twins and what later phases
+    compare with (the batches, each ELL twin's losses, the fused trainer's
+    checkpoint and its step time and memory)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     trainers, build_s = _twin_trainers(dev, bundle, tmp, "LightGCN")
     tr = trainers[True]
@@ -861,6 +945,37 @@ def phase_train(dev, bundle):
 
     rel_max = _check_twin_run("LightGCN", losses, launches["tile_matvec"], recall, ndcg)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(trainers[False].graph.fused,
+          "the default Trainer's ELL graph carries the merge-skip views")
+
+    # the per-layer twin and the fused default, each built from the same
+    # params (seed 42) and run alone on the same 20 batches: losses, ms per
+    # step, and the memory each takes from its build on
+    pl_losses, pl_ms, pl_peak, per_layer = _steps_alone(
+        dev, bundle, tmp, PerLayerTrainer, users, pos, neg)
+    check(not per_layer.graph.fused, "graph_fuse_layers=False builds no merge-skip views")
+    pl_params = {k: v.clone() for k, v in per_layer.model.params().items()}
+    pl_graph_gib = _graph_gib(per_layer.graph)
+    print("profile_ell_per_layer: " + json.dumps(_profile_steps(per_layer, users, pos, neg)),
+          flush=True)
+    del per_layer
+    f_losses, fused_ms, fused_peak, fused = _steps_alone(dev, bundle, tmp, Trainer, users,
+                                                         pos, neg)
+    fused_params = {k: v.clone() for k, v in fused.model.params().items()}
+    fused_graph_gib = _graph_gib(fused.graph)
+    fused_dir = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    fused.save_checkpoint(fused_dir, "best", 1, 0.0)
+    del fused
+    check(np.allclose(f_losses, losses[False], rtol=1e-6, atol=0),
+          "the fused trainer run alone repeats the ELL twin's 20 losses")
+    rel = np.abs(f_losses - pl_losses) / np.abs(pl_losses)
+    check(np.isfinite(pl_losses).all() and rel.max() <= FUSED_LOSS_RTOL,
+          f"fused and per-layer trainers: 20 step losses within rtol {FUSED_LOSS_RTOL} "
+          f"(max rel diff {rel.max():.3g})")
+    fused_diff = max((fused_params[k] - pl_params[k]).abs().max().item() for k in pl_params)
+    check(fused_diff <= FUSED_PARAMS_ATOL,
+          f"fused and per-layer trainers: final params within {FUSED_PARAMS_ATOL} "
+          f"(max abs diff {fused_diff:.3g})")
 
     tr.save_checkpoint(tmp, "best", 1, recall)
     served = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands,
@@ -882,6 +997,8 @@ def phase_train(dev, bundle):
         "batch": 2048,
         "ms_per_step_tile": step_ms[True],
         "ms_per_step_ell": step_ms[False],
+        "ms_per_step_fused": fused_ms,
+        "ms_per_step_per_layer": pl_ms,
         "examples_per_s_tile": 2048 / step_ms[True] * 1e3,
         "examples_per_s_ell": 2048 / step_ms[False] * 1e3,
         "trainer_build_s_tile": build_s[True],
@@ -891,6 +1008,8 @@ def phase_train(dev, bundle):
         "loss_first_tile": float(losses[True][0]),
         "loss_last_tile": float(losses[True][-1]),
         "loss_max_rel_diff": rel_max,
+        "fused_vs_per_layer_loss_max_rel_diff": float(rel.max()),
+        "fused_vs_per_layer_params_max_abs_diff": fused_diff,
         # after 20 Adam steps: how far apart the two paths' tables are
         "params_max_abs_diff": max(
             (trainers[True].model.params()[k] - trainers[False].model.params()[k])
@@ -898,13 +1017,21 @@ def phase_train(dev, bundle):
         "val_recall20": recall,
         "val_ndcg20": ndcg,
         "peak_mem_gib": peak_gib,
+        # each trainer alone: what it allocates from its build through 20 steps
+        "peak_mem_gib_fused": fused_peak,
+        "peak_mem_gib_per_layer": pl_peak,
+        "graph_gib_fused": fused_graph_gib,
+        "graph_gib_per_layer": pl_graph_gib,
     }
     print("train: " + json.dumps(meas), flush=True)
     for tile, name in ((True, "tile"), (False, "ell")):
         prof = _profile_steps(trainers[tile], users, pos, neg)
         print(f"profile_{name}: " + json.dumps(prof), flush=True)
     _min_fill_scan(dev, bundle, tmp, trainers[False], users, pos, neg)
-    return launches, step_ms, losses[False]
+    ref = {"users": users, "pos": pos, "neg": neg, "fused_losses": f_losses,
+           "per_layer_losses": pl_losses, "fused_ms": fused_ms, "fused_peak_gib": fused_peak,
+           "fused_dir": fused_dir}
+    return launches, step_ms, ref
 
 
 def _min_fill_scan(dev, bundle, tmp, ell_trainer, users, pos, neg):
@@ -1232,16 +1359,17 @@ def phase_fusion(dev, bundle, lightgcn_step_ms):
 def phase_padding(dev, bundle):
     """Row padding on the card: one set of LightGCN params through an
     unpadded model and through models padded to each of ``PAD_MULTIPLES``,
-    on the ELL path and on the tile path."""
+    on the fused and the per-layer ELL path and on the tile path."""
     cfg = Config(embedding_dim=64, n_layers=3)
 
     def graphs(model):
         g = model.padded_graph(bundle.graph)
         part = partition_tiles(g, min_fill=64)
         return {
-            "ELL": to_device_graph_auto(g, device=dev),
+            "fused ELL": to_device_graph_auto(g, device=dev),
+            "per-layer ELL": to_device_graph(g, device=dev, fuse_layers=False),
             "tile": block_spmm.TiledDeviceGraph(
-                base=to_device_graph(part.residual, device=dev),
+                base=to_device_graph(part.residual, device=dev, fuse_layers=False),
                 tiles=block_spmm.to_device_tiles(part, device=dev)),
         }
 
@@ -1613,15 +1741,17 @@ def _mesh_steps(trainer, users, pos, neg):
 
 
 def _mesh_train(dev, bundle, mesh, ell_losses, meas):
-    """The two sharded trainers against phase 6's ELL trainer, rerun here;
-    returns the reference's batches and seed-42 params (numpy)."""
+    """The two sharded trainers against phase 6's per-layer ELL trainer
+    (``PerLayerTrainer``, the propagation the sharded schedules split),
+    rerun here; returns the reference's batches and seed-42 params (numpy)."""
     from gcn_recommendation_tpu_torch.parallel.halo import HaloTrainer
     from gcn_recommendation_tpu_torch.parallel.spmd import ShardedTrainer
 
     cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048)
     params0 = None
     results = {}
-    for name, cls in (("single", Trainer), ("gspmd", ShardedTrainer), ("halo", HaloTrainer)):
+    for name, cls in (("single", PerLayerTrainer), ("gspmd", ShardedTrainer),
+                      ("halo", HaloTrainer)):
         model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
                                       device=dev)
         if params0 is None:
@@ -1630,7 +1760,7 @@ def _mesh_train(dev, bundle, mesh, ell_losses, meas):
         else:
             model.load_params(params0)
         t0 = time.perf_counter()
-        tr = cls(cfg, model, bundle) if cls is Trainer else cls(cfg, model, bundle, mesh)
+        tr = cls(cfg, model, bundle) if name == "single" else cls(cfg, model, bundle, mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         if name == "single":
@@ -1647,7 +1777,7 @@ def _mesh_train(dev, bundle, mesh, ell_losses, meas):
         if name == "single":
             fu, fi, *_ = tr._forward_eval()
             check(np.allclose(losses, ell_losses, rtol=1e-6, atol=0),
-                  "mesh reference: the ELL trainer's 20 losses repeat phase 6's")
+                  "mesh reference: the per-layer ELL trainer's 20 losses repeat phase 6's")
         del tr, model
     ref_losses, ref_params = results["single"]
     for name in ("gspmd", "halo"):
@@ -1840,6 +1970,270 @@ def phase_mesh(dev, bundle, ell_losses):
         distributed.shutdown()
 
 
+def _fused_args(dg):
+    return (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.bucket_nbr_idx_perm, dg.gather_idx,
+            dg.dense_mat, dg.dense_mat_perm)
+
+
+def _sum_of_layers(x, plain, layers: int = 3):
+    """``sum_{k=1..K} A^k x`` through K per-layer ``propagate_ell`` calls."""
+    out, y = None, x
+    for _ in range(layers):
+        y = propagate_ell(y, plain.bucket_nbr_idx, plain.bucket_nbr_w, plain.gather_idx,
+                          plain.dense_mat)
+        out = y if out is None else out + y
+    return out
+
+
+def _value_and_grad(fn, emb):
+    """``fn(x)`` and the gradient of ``sum(fn(x)**2)`` at ``x = emb``."""
+    x = emb.clone().requires_grad_(True)
+    out = fn(x)
+    (g,) = torch.autograd.grad((out.float() ** 2).sum(), x)
+    return out.detach(), g
+
+
+def _layouts_fused(dev, g, emb, meas):
+    """(a) ``propagate_sum_ell`` against three per-layer propagations."""
+    plain = to_device_graph(g, device=dev, fuse_layers=False)
+    fused = to_device_graph(g, device=dev)
+    check(fused.fused and not plain.fused, "to_device_graph builds the merge-skip views by "
+          "default and none with fuse_layers=False")
+    y_p, g_p = _value_and_grad(lambda x: _sum_of_layers(x, plain), emb)
+    y_f, g_f = _value_and_grad(lambda x: spmm.propagate_sum_ell(3, x, *_fused_args(fused)), emb)
+    fwd, grad = (y_f - y_p).abs().max().item(), (g_f - g_p).abs().max().item()
+    check(fwd <= LAYOUT_FWD_ATOL, f"propagate_sum_ell (3 layers) equals the sum of three "
+          f"propagate_ell calls (max abs diff {fwd:.3g})")
+    check(grad <= LAYOUT_GRAD_ATOL, f"propagate_sum_ell's gradient of sum(out**2) equals the "
+          f"per-layer one (max abs diff {grad:.3g})")
+    fused16 = to_device_graph(g, compute_dtype=torch.bfloat16, device=dev)
+    y16 = spmm.propagate_sum_ell(3, emb.to(torch.bfloat16), *_fused_args(fused16))
+    d16 = (y16 - y_f).abs().max().item()
+    check(y16.dtype == torch.float32 and torch.allclose(
+        y16, y_f, rtol=LAYOUT_BF16_TOL, atol=LAYOUT_BF16_TOL),
+        f"propagate_sum_ell with bf16 storage returns f32 within {LAYOUT_BF16_TOL} of the f32 "
+        f"result (max abs diff {d16:.3g})")
+    x = emb.clone().requires_grad_(True)
+    meas["fused_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+        (spmm.propagate_sum_ell(3, x, *_fused_args(fused)) ** 2).sum(), x), reps=5)
+    meas["per_layer_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+        (_sum_of_layers(x, plain) ** 2).sum(), x), reps=5)
+    x16 = emb.to(torch.bfloat16).requires_grad_(True)
+    meas["fused_bf16_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+        (spmm.propagate_sum_ell(3, x16, *_fused_args(fused16)) ** 2).sum(), x16), reps=5)
+    perm = list(fused.bucket_nbr_idx_perm) + [fused.dense_mat_perm]
+    meas["perm_views_gib"] = sum(t.numel() * t.element_size() for t in perm) / 2**30
+    meas["graph_gib_fused"] = _graph_gib(fused)
+    meas["graph_gib_per_layer"] = _graph_gib(plain)
+    meas.update(fused_max_abs_diff=fwd, fused_grad_max_abs_diff=grad,
+                fused_bf16_max_abs_diff=d16)
+    return plain, y_p
+
+
+def _layouts_chunked(dev, g, emb, plain, meas):
+    """(b) the chunked layout at each of ``LAYOUT_CHUNKS`` against plain ELL."""
+    n = g.num_nodes
+    one = lambda x: propagate_ell(  # noqa: E731
+        x, plain.bucket_nbr_idx, plain.bucket_nbr_w, plain.gather_idx, plain.dense_mat)
+    y_p, g_p = _value_and_grad(one, emb)
+    meas["plain_ms"] = _cuda_ms(lambda: one(emb), reps=5)
+    for c in LAYOUT_CHUNKS:
+        t0 = time.perf_counter()
+        build_chunked_ell(g, c)
+        meas[f"c{c}_build_chunked_ell_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cg = spmm.to_device_chunked_graph(g, c, device=dev)
+        torch.cuda.synchronize()
+        meas[f"c{c}_to_device_s"] = time.perf_counter() - t0
+        check(isinstance(cg, spmm.ChunkedDeviceGraph) and len(cg.chunk_gather_idx) == c,
+              f"to_device_chunked_graph builds {c} source chunks")
+        y_c, g_c = _value_and_grad(lambda x: spmm.propagate(x, cg, n), emb)
+        fwd, grad = (y_c - y_p).abs().max().item(), (g_c - g_p).abs().max().item()
+        check(fwd <= LAYOUT_FWD_ATOL and grad <= LAYOUT_GRAD_ATOL,
+              f"chunked at C={c}: forward and gradient equal plain ELL's (max abs diff "
+              f"{fwd:.3g} / {grad:.3g})")
+        cg16 = exp_gather_knee.cast_layout(cg, torch.bfloat16)
+        y16 = spmm.propagate(emb.to(torch.bfloat16), cg16, n)
+        d16 = (y16.float() - y_p).abs().max().item()
+        scale = y_p.abs().max().item()
+        check(y16.dtype == torch.bfloat16 and d16 <= CHUNK_BF16_RTOL * scale,
+              f"chunked at C={c} with bf16 storage (f32 accumulation) within "
+              f"{CHUNK_BF16_RTOL} x {scale:.3g} of f32 (max abs diff {d16:.3g})")
+        meas[f"c{c}_ms"] = _cuda_ms(lambda: spmm.propagate(emb, cg, n), reps=5)
+        emb16 = emb.to(torch.bfloat16)
+        meas[f"c{c}_bf16_ms"] = _cuda_ms(lambda: spmm.propagate(emb16, cg16, n), reps=5)
+        meas.update({f"c{c}_max_abs_diff": fwd, f"c{c}_grad_max_abs_diff": grad,
+                     f"c{c}_bf16_max_abs_diff": d16})
+        del cg, cg16
+
+
+def _knee_scan(dev, g):
+    """(c) the gather-knee scan (``tools/exp_gather_knee.py``), time-boxed."""
+    scan = exp_gather_knee.scan(dev, sizes=KNEE_SCAN_SIZES, chunks=(2, 4),
+                                budget_s=KNEE_SCAN_BUDGET_S, graphs={KNEE_SCAN_SIZES[0]: g})
+    for size, rec in scan["sizes"].items():
+        if isinstance(rec, dict):
+            for dtype in exp_gather_knee.DTYPES:
+                for c in (2, 4):
+                    check(rec[f"{dtype}_c{c}_matches"],
+                          f"knee scan, {rec['nodes']} nodes, {dtype}: chunked at C={c} equals "
+                          f"plain ELL (max abs diff {rec[f'{dtype}_c{c}_max_abs_diff']:.3g})")
+    scan["GATHER_KNEE_ROWS"] = spmm.GATHER_KNEE_ROWS
+    scan["num_chunks_for"] = {f"{n}_{name}": spmm.num_chunks_for(n, 64, dtype)
+                              for n in KNEE_SCAN_SIZES
+                              for name, dtype in exp_gather_knee.DTYPES.items()}
+    print("knee_scan: " + json.dumps(scan), flush=True)
+
+
+def _layouts_bf16_training(dev, bundle, ref):
+    """(d) the default trainer at compute_dtype bfloat16, phase 6's params
+    and batches, against phase 6's f32 (fused) run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    losses, ms, peak, tr = _steps_alone(dev, bundle, tmp, Trainer, ref["users"], ref["pos"],
+                                        ref["neg"], compute_dtype="bfloat16")
+    check(tr.graph.fused and tr.graph.bucket_nbr_w[0].dtype == torch.bfloat16
+          and tr.graph.dense_mat_perm.dtype == torch.bfloat16,
+          "a bf16 Trainer stores its fused graph in bf16")
+    f32 = ref["fused_losses"]
+    rel = np.abs(losses - f32) / np.abs(f32)
+    check(np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean(),
+          f"bf16 training: {TRAIN_STEPS} finite step losses, falling "
+          f"({losses[:5].mean():.5f} -> {losses[-5:].mean():.5f})")
+    check(rel.max() <= BF16_LOSS_RTOL, f"bf16 training: step losses within rtol "
+          f"{BF16_LOSS_RTOL} of the f32 run (max rel diff {rel.max():.3g})")
+    meas = {"steps": TRAIN_STEPS, "batch": 2048, "ms_per_step_bf16": ms,
+            "ms_per_step_f32": ref["fused_ms"], "peak_mem_gib_bf16": peak,
+            "peak_mem_gib_f32": ref["fused_peak_gib"], "graph_gib_bf16": _graph_gib(tr.graph),
+            "loss_max_rel_diff_vs_f32": float(rel.max()),
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    print("bf16: " + json.dumps(meas), flush=True)
+    print("profile_bf16: " + json.dumps(
+        _profile_steps(tr, ref["users"], ref["pos"], ref["neg"])), flush=True)
+
+
+def _layouts_test_mode_and_serving(dev, bundle, ref, meas):
+    """(e) ``test`` mode through the CLI on the fused trainer's checkpoint
+    against ``Trainer.validate`` on the test split; serving that checkpoint
+    from an int8 catalog.  Returns K2's launches on the serving path."""
+    from gcn_recommendation_tpu_torch.data.loader import Interactions
+    from gcn_recommendation_tpu_torch.models import lightgcn
+
+    b = bundle
+    args = cli.build_parser().parse_args(["test", "--model_path", ref["fused_dir"]])
+    config = cli._make_config(args)
+    model = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, config, device=dev)
+    calls = []
+    real = lightgcn.propagate_sum_ell
+    lightgcn.propagate_sum_ell = lambda *a: calls.append(1) or real(*a)
+    try:
+        recall, ndcg = cli.run_test_loaded(config, args, b, model, dev)
+    finally:
+        lightgcn.propagate_sum_ell = real
+    check(len(calls) == 1, f"test mode propagates through propagate_sum_ell ({len(calls)} call)")
+    # Trainer.validate over the test split, train + val filtered: the same
+    # evaluation as test mode, on the default trainer's fused graph
+    filt = Interactions(np.concatenate([b.train.user_idx, b.val.user_idx]),
+                        np.concatenate([b.train.item_idx, b.val.item_idx]))
+    cfg = Config(embedding_dim=64, n_layers=3)
+    tmodel = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, cfg, device=dev)
+    tmodel.load_params(ckpt.load_params(ref["fused_dir"], device=dev))
+    tr = Trainer(cfg, tmodel, dataclasses.replace(b, val=b.test, train=filt))
+    check(tr.graph.fused, "the reference Trainer's graph is fused")
+    r_want, n_want = tr.validate()
+    check(np.isclose(recall, r_want, rtol=TEST_MODE_RTOL, atol=0)
+          and np.isclose(ndcg, n_want, rtol=TEST_MODE_RTOL, atol=0),
+          f"test mode Recall@{K} {recall:.6f} / NDCG {ndcg:.6f} equal Trainer.validate's "
+          f"{r_want:.6f} / {n_want:.6f} on the test split")
+    del tr, tmodel
+    meas.update(test_recall20=recall, test_ndcg20=ndcg)
+
+    users64 = np.unique(b.train.user_idx)[:64]
+    # --- the main path: counts from 0, read right after ---
+    quant.quantize_rows_int8.launches = 0
+    quant.quantize_users_int8.launches = 0
+    rq = Retriever.from_params(model, ckpt.load_params(ref["fused_dir"], device=dev), b,
+                               quantize=True)
+    v, i = rq.recommend(users64, k=K)
+    launches = {"quantize_rows_int8": quant.quantize_rows_int8.launches,
+                "quantize_users_int8": quant.quantize_users_int8.launches}
+    # --- end of the main path ---
+    check(launches == {"quantize_rows_int8": 1, "quantize_users_int8": 1},
+          f"the fused trainer's checkpoint serves from an int8 catalog: K2 stochastic "
+          f"{launches['quantize_rows_int8']}x, nearest {launches['quantize_users_int8']}x")
+    seen = _seen_sets(b, users64)
+    check(v.shape == (64, K) and np.isfinite(v).all()
+          and all(not (set(i[j].tolist()) & seen[j]) for j in range(64)),
+          "the fused trainer's checkpoint answers 64 users, finite, no seen item")
+    return launches
+
+
+def _layouts_native(bundle):
+    """(e) the native ETL against numpy on the books bundle."""
+    from unittest import mock
+
+    from gcn_recommendation_tpu_torch.data import prepare
+
+    b = bundle
+    check(native_ext.available(), "the native ETL library builds and loads "
+          f"({os.path.relpath(native_ext.library_path())})")
+    args = (b.train.user_idx, b.train.item_idx, b.num_users, b.num_items, b.num_brands)
+    kw = dict(item_brand_item_idx=b.item_brand.item_idx,
+              item_brand_brand_idx=b.item_brand.brand_idx)
+    t0 = time.perf_counter()
+    g_native = build_normalized_adjacency(*args, **kw)
+    t1 = time.perf_counter()
+    with mock.patch.object(native_ext, "available", lambda: False):
+        g_numpy = build_normalized_adjacency(*args, **kw)
+        t2 = time.perf_counter()
+        mask_numpy = prepare.kcore_filter(b.train.user_idx, b.train.item_idx, 20)
+        t3 = time.perf_counter()
+    mask_native = prepare.kcore_filter(b.train.user_idx, b.train.item_idx, 20)
+    t4 = time.perf_counter()
+    same_idx = all(np.array_equal(getattr(g_native, f), getattr(g_numpy, f))
+                   for f in ("src", "dst", "row_ptr", "gather_idx", "dense_node_ids"))
+    same_idx = same_idx and all(np.array_equal(x.nbr_idx, y.nbr_idx)
+                                for x, y in zip(g_native.buckets, g_numpy.buckets))
+    close_w = all(np.allclose(getattr(g_native, f), getattr(g_numpy, f), rtol=NATIVE_RTOL,
+                              atol=0) for f in ("weight", "dense_mat"))
+    close_w = close_w and all(np.allclose(x.nbr_w, y.nbr_w, rtol=NATIVE_RTOL, atol=0)
+                              for x, y in zip(g_native.buckets, g_numpy.buckets))
+    check(same_idx and close_w and np.array_equal(g_native.weight, b.graph.weight),
+          f"the books graph on the native path equals numpy's (indices identical, weights "
+          f"rtol {NATIVE_RTOL}) and the bundle's own")
+    check(np.array_equal(mask_native, mask_numpy) and 0 < mask_native.sum() < len(mask_native),
+          f"the native 20-core mask equals numpy's ({int(mask_native.sum())} of "
+          f"{len(mask_native)} kept)")
+    meas = {"available": True, "graph_native_s": t1 - t0, "graph_numpy_s": t2 - t1,
+            "kcore20_native_s": t4 - t3, "kcore20_numpy_s": t3 - t2,
+            "weights_differing": int((g_native.weight != g_numpy.weight).sum()),
+            "nnz": int(g_native.nnz)}
+    print("native: " + json.dumps(meas), flush=True)
+
+
+def phase_layouts(dev, bundle, ref):
+    """Phase 12: the merge-skip and chunked layouts on the books bundle
+    (d = 64, 3 layers), the knee scan, bf16 training, ``test`` mode and
+    serving from the fused trainer, the native ETL.  Returns K2's
+    launches on the serving path of (e)."""
+    t_phase = time.perf_counter()
+    g = bundle.graph
+    emb = torch.randn(g.num_nodes, 64, generator=torch.Generator().manual_seed(12)).to(dev)
+    meas = {}
+    plain, _ = _layouts_fused(dev, g, emb, meas)
+    _layouts_chunked(dev, g, emb, plain, meas)
+    del plain
+    torch.cuda.empty_cache()
+    launches = _layouts_test_mode_and_serving(dev, bundle, ref, meas)
+    meas["phase_s_before_scan"] = time.perf_counter() - t_phase
+    print("layouts: " + json.dumps(meas), flush=True)
+    _layouts_bf16_training(dev, bundle, ref)
+    _layouts_native(bundle)
+    torch.cuda.empty_cache()
+    _knee_scan(dev, g)
+    print(f"layouts_phase_s: {time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -1865,12 +2259,13 @@ def main() -> int:
     bundle, bundle_s = books_bundle()
     serve_launches = phase_path(dev, bundle, bundle_s)
     tile_record = phase_tile_kernel_check(dev, bundle)
-    train_launches, step_ms, ell_losses = phase_train(dev, bundle)
+    train_launches, step_ms, train_ref = phase_train(dev, bundle)
     x1_record, x2_record = phase_exp_tiles(dev)
     fusion_launches = phase_fusion(dev, bundle, step_ms)
     phase_padding(dev, bundle)
     daemon_launches = phase_daemon(dev, bundle)
-    mesh_launches = phase_mesh(dev, bundle, ell_losses)
+    mesh_launches = phase_mesh(dev, bundle, train_ref["per_layer_losses"])
+    layout_launches = phase_layouts(dev, bundle, train_ref)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -1882,6 +2277,8 @@ def main() -> int:
     quant_record["launches_fusion_path"] = fusion_launches["quantize_rows_int8"]
     quant_record["launches_mesh_stochastic"] = mesh_launches["quantize_rows_int8"]
     quant_record["launches_mesh_nearest"] = mesh_launches["quantize_users_int8"]
+    quant_record["launches_layouts_stochastic"] = layout_launches["quantize_rows_int8"]
+    quant_record["launches_layouts_nearest"] = layout_launches["quantize_users_int8"]
     tile_record["launches"] = train_launches["tile_matvec"]
     tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)

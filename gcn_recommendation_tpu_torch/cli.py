@@ -409,16 +409,16 @@ def run_train(args) -> int:
     return 0
 
 
-def run_test(args) -> int:
+def run_test_loaded(config, args, bundle, model, device, mesh=None):
+    """The ``test`` mode over loaded data: restore the best checkpoint and
+    evaluate on the test split (train + val filtered), through the
+    schedule's sharded forward on ``mesh``; prints on rank 0.  Returns
+    (recall, ndcg)."""
     from gcn_recommendation_tpu_torch.data.loader import Interactions
     from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
     from gcn_recommendation_tpu_torch.train.evaluate import evaluate
 
-    config = _make_config(args)
-    device, mesh = _device_and_mesh(args)
-    bundle, model = _load_everything(config, device)
     params = _restore_best_params(config, args, device)
-
     model.load_params(params)
     if _is_rank0():
         print("Evaluating on the TEST set...")
@@ -439,8 +439,10 @@ def run_test(args) -> int:
             config.top_k, config.eval_user_batch,
         )
     else:
+        # the JAX package's arguments: fused (its default) below the knee
         graph = to_device_graph_auto(
-            bundle.graph, compute_dtype=model.compute_dtype, device=device
+            bundle.graph, compute_dtype=model.compute_dtype,
+            embedding_dim=config.embedding_dim, device=device,
         )
         recall, ndcg = evaluate(
             model, graph, bundle.test, filt, bundle.num_users, bundle.num_items,
@@ -451,6 +453,14 @@ def run_test(args) -> int:
         print(f"Recall@{config.top_k}: {recall:.4f}")
         print(f"NDCG@{config.top_k}:   {ndcg:.4f}")
         print("--------------------------")
+    return recall, ndcg
+
+
+def run_test(args) -> int:
+    config = _make_config(args)
+    device, mesh = _device_and_mesh(args)
+    bundle, model = _load_everything(config, device)
+    run_test_loaded(config, args, bundle, model, device, mesh)
     return 0
 
 

@@ -29,9 +29,9 @@ Recipe parity (each bullet cites the reference script it reproduces):
 
 The port's own copy of ``gcn_recommendation_tpu/data/prepare.py`` (numpy
 and pandas, no device code), held against it file for file by
-``tests/test_torch_prepare.py``.  The K-core filter is the numpy one: the
-JAX package's optional native C++ fast path is not ported, and the numpy
-loop is what that package runs too when its library is absent.
+``tests/test_torch_prepare.py``.  The K-core filter runs in the native
+C++ library (``data/native_ext.py``) when it loads and in numpy
+otherwise, as in the JAX package; both give the same mask.
 """
 
 from __future__ import annotations
@@ -55,7 +55,13 @@ def kcore_filter(
 
     Iterates until every remaining user and item has >= k interactions
     (reference loop at dataset/amazon_books/prepare_data.py:39-48).
+    Uses the native C++ implementation when it loads.
     """
+    from gcn_recommendation_tpu_torch.data import native_ext
+
+    if native_ext.available():
+        return native_ext.kcore_filter_native(users, items, k)
+
     keep = np.ones(len(users), dtype=bool)
     if k <= 1:
         return keep

@@ -12,8 +12,10 @@ imports nothing from the JAX package).  Semantics of the reference
 
 Two views of the normalized adjacency: a dst-sorted COO (the reference
 path) and a degree-bucketed ELL view plus dense hub rows (the
-propagation path, ops/spmm.py).  Only the numpy path is carried over;
-the JAX package's optional native C++ ETL computes the same arrays.
+propagation path, ops/spmm.py), and the source-chunked ELL view of
+large graphs (``build_chunked_ell``).  The dedup, normalization and sort
+run in the native C++ library (``data/native_ext.py``) when it loads, in
+numpy otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 
 __all__ = [
     "Graph", "build_normalized_adjacency", "normalize_sym", "bucket_by_degree",
-    "pad_graph_nodes", "pad_ell_rows",
+    "pad_graph_nodes", "pad_ell_rows", "build_chunked_ell",
 ]
 
 
@@ -263,9 +265,23 @@ def build_normalized_adjacency(
         cols = np.concatenate([i, u])
 
     # dst-major sorted COO with dst := row (A is symmetric, so
-    # "out[dst] += w * emb[src]" computes A @ E)
-    dst_sorted, src_sorted, vals = _dedup_sum(rows, cols, num_nodes)
-    w_sorted = normalize_sym(dst_sorted, src_sorted, vals, num_nodes)
+    # "out[dst] += w * emb[src]" computes A @ E).  The native path and the
+    # numpy path agree to ~2 ULP, not bitwise: the native one normalizes
+    # in float32, numpy multiplies in float64 and rounds once
+    # (tests/test_torch_native.py holds them to rtol 1e-6), so runs with
+    # and without the toolchain are not bit-reproducible.  (Imported here:
+    # the data package's loader imports this module.)
+    from gcn_recommendation_tpu_torch.data import native_ext
+
+    if native_ext.available():
+        dst_sorted, src_sorted, w_sorted = native_ext.build_norm_edges_native(
+            rows, cols, num_nodes
+        )
+        dst_sorted = dst_sorted.astype(np.int64)
+        src_sorted = src_sorted.astype(np.int64)
+    else:
+        dst_sorted, src_sorted, vals = _dedup_sum(rows, cols, num_nodes)
+        w_sorted = normalize_sym(dst_sorted, src_sorted, vals, num_nodes)
     nnz = len(dst_sorted)
 
     row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
@@ -431,3 +447,87 @@ def pad_ell_rows(
     off += h_pad
     new_gather[new_gather < 0] = off  # degree-0 / pad nodes -> zeros row
     return new_buckets, new_gather.astype(np.int32), dense_node_ids, dm
+
+
+def build_chunked_ell(graph: Graph, num_chunks: int, num_dest_slices: Optional[int] = None):
+    """The non-hub ELL view rebuilt as source chunks x destination slices
+    (the layout of ``ops/spmm.py::to_device_chunked_graph``).
+
+    * **Source chunks**: chunk c covers source ids ``[c*chunk_rows,
+      (c+1)*chunk_rows)`` with ``chunk_rows = ceil(num_nodes/num_chunks)``;
+      each destination row is split into up to ``num_chunks`` sub-rows,
+      one per chunk, so neighbor gathers read a sub-table of the
+      embedding block.
+    * **Destination slices** of ``slice_rows = ceil(num_nodes/S)`` rows
+      (``S = num_dest_slices``, default ``num_chunks``): each cell's merge
+      gather reads a parts table of at most ``slice_rows`` rows, and the
+      slice outputs concatenate in node order.
+
+    Composing the merge into the next layer's indices (the merge-skip of
+    ``propagate_sum_ell``) does not carry over: the merged output is a sum
+    of per-chunk parts tables, so every downstream edge gather would read
+    all C of them.
+
+    Each (chunk, slice) cell is degree-bucketed on its own, with
+    chunk-local neighbor ids and slice-local destination rows; hub rows
+    keep the graph's global dense path.
+
+    Returns (per_cell_buckets, per_cell_gather_idx, dense_gather_idx):
+    ``per_cell_buckets[c][t]`` is a list of EllBucket with chunk-local
+    ``nbr_idx``; ``per_cell_gather_idx[c][t]`` maps every node of slice t
+    (slice-local) to its row among cell (c, t)'s bucket outputs (the
+    trailing zeros row when it has no neighbor in chunk c);
+    ``dense_gather_idx`` maps hub nodes to their dense-output rows (the
+    trailing zeros row otherwise).  Numpy copy of the JAX package's
+    ``graph/build.py::build_chunked_ell``; the arrays are equal to its.
+    """
+    n = graph.num_nodes
+    if num_dest_slices is None:
+        num_dest_slices = num_chunks
+    chunk_rows = -(-n // num_chunks)
+    slice_rows = -(-n // num_dest_slices)
+    dst = graph.dst[: graph.nnz].astype(np.int64)
+    src = graph.src[: graph.nnz].astype(np.int64)
+    w = graph.weight[: graph.nnz]
+
+    hub_set = np.zeros(n, dtype=bool)
+    hub_set[graph.dense_node_ids] = True
+    keep = ~hub_set[dst]
+    dst, src, w = dst[keep], src[keep], w[keep]
+    chunk_of = src // chunk_rows
+
+    per_cell_buckets = []
+    per_cell_gidx = []
+    max_deg = int(np.bincount(dst, minlength=n).max()) if len(dst) else 0
+    slice_edges = np.arange(num_dest_slices + 1, dtype=np.int64) * slice_rows
+    for c in range(num_chunks):
+        m = chunk_of == c
+        # boolean selection keeps the dst-major order
+        dst_c, src_c, w_c = dst[m], src[m] - c * chunk_rows, w[m]
+        bounds = np.searchsorted(dst_c, slice_edges)
+        cell_buckets = []
+        cell_gidx = []
+        for t in range(num_dest_slices):
+            lo, hi = bounds[t], bounds[t + 1]
+            # trailing slices are empty when (S-1)*ceil(n/S) >= n (few
+            # rows, many slices): clamp them to zero rows
+            rows_t = max(0, min(slice_rows, n - t * slice_rows))
+            buckets, gidx, dn, _ = bucket_by_degree(
+                dst_c[lo:hi] - t * slice_rows,
+                src_c[lo:hi],
+                w_c[lo:hi],
+                rows_t,
+                dense_threshold=max_deg + 1,  # hubs stay on the global path
+                num_src_nodes=chunk_rows,
+            )
+            if len(dn):
+                raise AssertionError("a chunk cell produced hub rows")
+            cell_buckets.append(buckets)
+            cell_gidx.append(gidx)
+        per_cell_buckets.append(cell_buckets)
+        per_cell_gidx.append(cell_gidx)
+
+    h = len(graph.dense_node_ids)
+    dense_gidx = np.full(n, h, dtype=np.int32)  # default: the trailing zeros row
+    dense_gidx[graph.dense_node_ids] = np.arange(h, dtype=np.int32)
+    return per_cell_buckets, per_cell_gidx, dense_gidx

@@ -27,7 +27,7 @@ from torch import nn
 
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.build import Graph, pad_graph_nodes
-from gcn_recommendation_tpu_torch.ops.spmm import propagate
+from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, propagate, propagate_sum_ell
 
 
 def xavier_uniform(
@@ -246,12 +246,26 @@ class LightGCN(nn.Module):
 
     def forward(self, graph, path: str = "ell"):
         """Returns (final_user, final_item, final_brand, user0, item0), all
-        of logical size.  ``graph`` is a DeviceGraph or a TiledDeviceGraph
-        (over the padded node space when the tables are row-padded);
-        gradients flow to the tables through either (each propagation's
-        backward is the same product on the cotangent)."""
+        of logical size.  ``graph`` is a DeviceGraph, a ChunkedDeviceGraph
+        or a TiledDeviceGraph (over the padded node space when the tables
+        are row-padded); gradients flow to the tables through each (every
+        propagation's backward is the same product on the cotangent).
+
+        A DeviceGraph that carries the permuted views (``fused``) takes
+        the merge-skip path at 2 layers or more on ``path='ell'``: one
+        ``propagate_sum_ell`` for all K layers, as in the JAX package."""
         num_nodes = self.num_users_pad + self.num_items_pad + self.num_brands_pad
         ego = torch.cat(self._initial_tables(), dim=0)
+        fused = path == "ell" and self.n_layers >= 2 and (
+            isinstance(graph, DeviceGraph) and graph.fused)
+        if fused:
+            s = propagate_sum_ell(
+                self.n_layers, ego.to(self.compute_dtype), graph.bucket_nbr_idx,
+                graph.bucket_nbr_w, graph.bucket_nbr_idx_perm, graph.gather_idx,
+                graph.dense_mat, graph.dense_mat_perm,
+            )
+            final = ((ego.float() + s) / (self.n_layers + 1)).to(ego.dtype)
+            return self._split_final(final)
         # propagate in compute dtype, accumulate the layer mean in f32
         acc = ego.float()
         x = ego.to(self.compute_dtype)

@@ -297,6 +297,8 @@ class HaloTrainer(ShardedTrainer):
     """
 
     schedule = "halo"
+    graph_chunking = False  # shard_ell takes the plain COO layout
+    graph_fuse_layers = False
 
     def _device_graph(self):
         m = self.model

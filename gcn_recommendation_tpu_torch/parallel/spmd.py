@@ -260,6 +260,10 @@ class ShardedTrainer(Trainer):
     """
 
     schedule = "gspmd"
+    # shard_graph takes the plain, per-layer ELL layout: no source chunks
+    # (the row shards already split the tables) and no merge-skip views
+    graph_chunking = False
+    graph_fuse_layers = False
 
     def __init__(self, config, model, bundle, mesh, logger=None):
         if config.tile_spmm:
@@ -295,8 +299,8 @@ class ShardedTrainer(Trainer):
     def _device_graph(self):
         g = self.model.padded_graph(self.bundle.graph)
         cdtype = getattr(torch, self.config.compute_dtype)
-        return shard_graph(to_device_graph(g, compute_dtype=cdtype, device=self.device),
-                           self.mesh)
+        return shard_graph(to_device_graph(g, compute_dtype=cdtype, device=self.device,
+                                           fuse_layers=False), self.mesh)
 
     def _make_propagator(self):
         return make_gspmd_table_propagator(

@@ -111,7 +111,10 @@ class Retriever:
         model.load_params(params)
         graph = to_device_graph_auto(
             model.padded_graph(bundle.graph), compute_dtype=model.compute_dtype,
-            device=model.device,
+            embedding_dim=model.embedding_dim,
+            # serving propagates once per load: no merge-skip views, which
+            # would hold the hub matrix twice
+            fuse_layers=False, device=model.device,
         )
         fu, fi, *_ = model(graph)
         return cls(fu, fi, bundle, quantize=quantize, mesh=mesh)

@@ -33,6 +33,10 @@ state lives (``_load_model_params``, ``_import_tree``, ``_export_tree``,
 ``params``), the graph (``_device_graph``), the forward (``_forward``),
 the batch (``batch_loss``), the gradient and loss reductions, and
 validation.
+The ELL graph carries the merge-skip views by default
+(``graph_fuse_layers``), so a step propagates through one
+``ops/spmm.py::propagate_sum_ell`` forward and one backward; above the
+gather knee the graph is source-chunked (``graph_chunking``).
 With ``Config.tile_spmm`` the propagation runs over the block-sparse tile
 partition (``ops/block_spmm.py``, the ``csrc/tile_spmm.cu`` kernel three
 times forward and three times backward per step at 3 layers).
@@ -55,7 +59,11 @@ from gcn_recommendation_tpu_torch.data.sampler import (
     sample_negatives,
 )
 from gcn_recommendation_tpu_torch.models.lightgcn import debug_diagnostics
-from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
+from gcn_recommendation_tpu_torch.ops.spmm import (
+    num_chunks_for,
+    to_device_chunked_graph,
+    to_device_graph,
+)
 from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches, evaluate_batches
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
@@ -64,6 +72,14 @@ from gcn_recommendation_tpu_torch.utils.profiling import trace
 
 
 class Trainer:
+    # The source-chunked layout above the gather knee
+    # (ops/spmm.py::num_chunks_for; the sharded trainers turn it off).
+    graph_chunking = True
+    # Merge-skip: the permuted views that let the model run all K layers
+    # through one propagate_sum_ell (the JAX package's single-device
+    # default).  False gives the per-layer propagate_ell path and saves
+    # the second copy of the hub matrix.
+    graph_fuse_layers = True
     # Above this many examples per epoch, negatives are drawn in-step so
     # the sampler's memory stays [batch]-sized (the JAX package's rule).
     epoch_presample_max_examples = 4_000_000
@@ -99,10 +115,18 @@ class Trainer:
         self._print = print  # progress lines (a sharded run prints on rank 0 only)
 
     def _device_graph(self):
-        """The ELL device graph, or the tile partition's TiledDeviceGraph
-        when ``config.tile_spmm`` is set and some tile qualifies."""
+        """The device graph, in the JAX package's order: the source-chunked
+        layout above the gather knee (``graph_chunking``); else the tile
+        partition's TiledDeviceGraph when ``config.tile_spmm`` is set and
+        some tile qualifies (its residual unfused); else the ELL graph,
+        with the merge-skip views when ``graph_fuse_layers``."""
         g = self.model.padded_graph(self.bundle.graph)
         cdtype = getattr(torch, self.config.compute_dtype)
+        n_chunks = num_chunks_for(g.num_nodes, self.config.embedding_dim, cdtype)
+        if self.graph_chunking and n_chunks > 1:
+            print(f"Graph: source-chunked gathers ({n_chunks} chunks — "
+                  f"embedding block above the gather knee, see PERF.md)")
+            return to_device_chunked_graph(g, n_chunks, compute_dtype=cdtype, device=self.device)
         if self.config.tile_spmm:
             from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
             from gcn_recommendation_tpu_torch.ops.block_spmm import (
@@ -121,12 +145,14 @@ class Trainer:
                     f"{part.n_row_blocks} row blocks, {tiles.layout} layout (see PERF.md)"
                 )
                 return TiledDeviceGraph(
-                    base=to_device_graph(part.residual, compute_dtype=cdtype, device=self.device),
+                    base=to_device_graph(part.residual, compute_dtype=cdtype,
+                                         device=self.device, fuse_layers=False),
                     tiles=tiles,
                 )
             print("Graph: tile partition empty at min_fill="
                   f"{self.config.tile_min_fill}; using the ELL path")
-        return to_device_graph(g, compute_dtype=cdtype, device=self.device)
+        return to_device_graph(g, compute_dtype=cdtype, device=self.device,
+                               fuse_layers=self.graph_fuse_layers)
 
     def _make_optimizer(self) -> torch.optim.Adam:
         return torch.optim.Adam(

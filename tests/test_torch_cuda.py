@@ -443,3 +443,73 @@ def test_world_of_one_sharded_retriever_on_card(card, bundle, quantize):
         n = bundle.num_items
         assert torch.equal(r.item_q[:n], single.item_q[:n])
         assert torch.equal(r.item_scale[:n], single.item_scale[:n])
+
+
+# ------------------------------------------ merge-skip and chunked layouts
+
+
+def _fused_args(dg):
+    return (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.bucket_nbr_idx_perm, dg.gather_idx,
+            dg.dense_mat, dg.dense_mat_perm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_propagation_matches_cpu_on_card(card, bundle, dtype):
+    """``propagate_sum_ell`` and its backward on the card against the same
+    call on the CPU: f32 within 1e-5 (other summation order), bf16 storage
+    within 2e-2 of the scale (the parts round to 8 mantissa bits)."""
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate_sum_ell
+
+    g = bundle.graph
+    emb = torch.randn(g.num_nodes, 64, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", card):
+        dg = to_device_graph(g, compute_dtype=dtype, device=dev)
+        x = emb.to(device=dev, dtype=dtype).requires_grad_(True)
+        y = propagate_sum_ell(3, x, *_fused_args(dg))
+        (gx,) = torch.autograd.grad((y ** 2).sum(), x)
+        out[str(dev)] = (y.detach().cpu(), gx.float().cpu())
+    (y_c, g_c), (y_g, g_g) = out["cpu"], out[str(card)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (y_g - y_c).abs().max().item() <= tol * max(1.0, y_c.abs().max().item())
+    assert (g_g - g_c).abs().max().item() <= tol * max(1.0, g_c.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chunked_propagation_matches_cpu_on_card(card, bundle, dtype):
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_chunked_graph
+
+    g = bundle.graph
+    emb = torch.randn(g.num_nodes, 64, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", card):
+        cg = to_device_chunked_graph(g, 3, compute_dtype=dtype, device=dev)
+        x = emb.to(device=dev, dtype=dtype).requires_grad_(True)
+        y = propagate(x, cg, g.num_nodes)
+        (gx,) = torch.autograd.grad((y.float() ** 2).sum(), x)
+        out[str(dev)] = (y.detach().float().cpu(), gx.float().cpu())
+    (y_c, g_c), (y_g, g_g) = out["cpu"], out[str(card)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (y_g - y_c).abs().max().item() <= tol * max(1.0, y_c.abs().max().item())
+    assert (g_g - g_c).abs().max().item() <= tol * max(1.0, g_c.abs().max().item())
+
+
+def test_default_trainer_fuses_on_card(card, bundle, tmp_path):
+    """The default trainer's step on the card equals its step on the CPU
+    (rtol 1e-5), on the fused graph."""
+    losses = {}
+    for dev in ("cpu", card):
+        cfg = Config(embedding_dim=32, n_layers=3, batch_size=256,
+                     checkpoint_dir=str(tmp_path), results_dir=str(tmp_path))
+        m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=dev)
+        m.init(torch.Generator().manual_seed(0))
+        tr = Trainer(cfg, m, bundle)
+        assert tr.graph.fused
+        rng = np.random.default_rng(0)
+        rows = rng.integers(0, len(bundle.train), 256)
+        users = torch.from_numpy(bundle.train.user_idx[rows].astype(np.int64)).to(dev)
+        pos = torch.from_numpy(bundle.train.item_idx[rows].astype(np.int64)).to(dev)
+        neg = torch.from_numpy(rng.integers(0, bundle.num_items, 256)).to(dev)
+        losses[str(dev)] = float(tr.train_step(users, pos, neg))
+    np.testing.assert_allclose(losses[str(card)], losses["cpu"], rtol=1e-5)

@@ -32,7 +32,8 @@ def test_port_lists_its_modules():
               "train.evaluate", "train.trainer", "utils.logging",
               "models.lightgcn_fusion", "tools", "tools.exp_block_tiles", "tools.exp_tile_variants",
               "data.synthetic", "graph.build", "server", "data.prepare", "utils.profiling",
-              "tools.exp_quant_call", "tools.exp_daemon_backlog"):
+              "tools.exp_quant_call", "tools.exp_daemon_backlog", "data.native_ext",
+              "tools.exp_gather_knee", "ops", "graph", "data"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -102,7 +103,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from gcn_recommendation_tpu_torch.models import get_model
     from gcn_recommendation_tpu_torch.models.convert import params_from_jax
     from gcn_recommendation_tpu_torch.ops.block_spmm import tiles_from_arrays, to_device_tiles
-    from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph_auto
+    from gcn_recommendation_tpu_torch.ops.spmm import (
+        to_device_chunked_graph,
+        to_device_graph,
+        to_device_graph_auto,
+    )
     from gcn_recommendation_tpu_torch.tools import exp_block_tiles
     from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches
     from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
@@ -111,6 +116,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
     calls = [
         lambda: get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, Config()),
         lambda: to_device_graph_auto(b.graph),
+        lambda: to_device_graph(b.graph, fuse_layers=False),
+        lambda: to_device_chunked_graph(b.graph, 2),
         lambda: params_from_jax(
             {k: np.zeros((2, 2)) for k in
              ("user_embedding", "item_embedding", "brand_embedding")},
@@ -150,7 +157,8 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
     for rel in ("server.py", "data/prepare.py", "utils/profiling.py", "cli.py",
                 "tools/exp_quant_call.py", "core/mesh.py", "core/distributed.py",
                 "parallel/__init__.py", "parallel/spmd.py", "parallel/halo.py",
-                "parallel/collectives.py", "parallel/drivers.py"):
+                "parallel/collectives.py", "parallel/drivers.py", "data/native_ext.py",
+                "tools/exp_gather_knee.py", "ops/spmm.py", "graph/build.py"):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
