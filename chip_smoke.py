@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: serving, training (both model
 families), the tile experiment, row padding, the HTTP serving daemon, the
-mesh and the propagation layouts.
+mesh, the propagation layouts and the scaled configuration.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,8 @@ fails:
    nearest) and through both entry points (the lane-group kernel and the
    first version, ``quantize_rows_int8_launch_v1``) against the plain
    PyTorch versions at the catalog shape [20000, 64], at [2000000, 64], at
-   the largest request [1024, 64] and at ragged [1000, 48] and [37, 50]; q
+   the largest request [1024, 64], at ragged [1000, 48] and [37, 50] and at
+   the north-star catalog of phase 13, [200000, 256]; q
    and scales must be bit-equal.  Times are CUDA-event medians over 5
    windows: of 20 back-to-back eager calls (plain version, ``call_ms``) or
    of replays of a CUDA graph of 20 launches (``ms``), beside a kernel that
@@ -147,7 +148,24 @@ fails:
    checkpoint serving 64 users from an int8 catalog (K2 once in each
    mode, counted from 0); the native ETL library loaded, the bundle's
    graph on it equal to numpy's (indices identical, weights rtol 1e-6),
-   the 20-core mask equal to numpy's, build seconds of each.
+   the 20-core mask equal to numpy's, build seconds of each;
+13. the scaled configuration, LightGCN at dim 256 and 4 layers
+   (``BASELINE.json`` ``configs[4]``; ``scale_*:`` lines): (a) on the books
+   bundle, K3 in both layouts with f32 and bf16 tiles against the plain
+   version at d = 4, 50, 132, 200 and 256 (phase 5's limits), its times at
+   d = 256 beside the bounds and ``torch.sparse.mm``; a tile trainer (the
+   compressed K3 at d = 256, 8 launches a step and 4 a validation) and its
+   fused ELL twin take the same 20 steps from the same params (finite,
+   falling, per-step losses within rtol 2e-3), then 64 users from an int8
+   catalog (K2 once in each mode, counted from 0; top-20 overlap with f32
+   >= 0.9); (b) the north-star graph of ``tools/exp_scale.py`` (720,000
+   nodes, ~33.0M nonzeros): the default ``Trainer`` on the source-chunked
+   layout (two chunks by the knee rule) takes 3 steps and validates over
+   all 500,000 validation users, then an int8 catalog serves 1, 64 and
+   1024 users (K2 once stochastic, once nearest a request, counted from 0):
+   ETL seconds, ms per step, peak GiB, validation seconds and users/s,
+   request ms; measurement only, one evaluation batch in its pieces and a
+   ``torch.profiler`` window of two steps.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -217,7 +235,9 @@ MIN_FILL_SCAN_BUDGET_S = 40.0
 MESH_RTOL, MESH_ATOL = 1e-4, 1e-6   # sharded vs single-device training (tests/test_parallel.py)
 MESH_REQUEST_SIZES = (1, 64, 1024)
 MESH_MULTI_TIMEOUT_S = 300          # a 2-rank collective that waits longer fails the run
-QUANT_CHECK_SHAPES = ((20_000, 64), (2_000_000, 64), (1_024, 64), (1_000, 48), (37, 50))
+QUANT_CHECK_SHAPES = ((20_000, 64), (2_000_000, 64), (1_024, 64), (1_000, 48), (37, 50),
+                      # phase 13's shapes: the catalogs and the requests at dim 256
+                      (200_000, 256), (20_000, 256), (1_024, 256), (64, 256), (1, 256))
 DAEMON_CLIENTS = 16
 DAEMON_REQUESTS = 200         # a half before the reload, a half after
 DAEMON_STRADDLE = 32          # requests in flight around the reload
@@ -237,6 +257,10 @@ KNEE_SCAN_BUDGET_S = 60.0
 BF16_LOSS_RTOL = 2e-2         # bf16 vs f32 training, per-step loss
 TEST_MODE_RTOL = 1e-6         # test mode vs Trainer.validate: the same sums
 NATIVE_RTOL = 1e-6            # native vs numpy weights: ~2 ULP (tests/test_native.py)
+SCALE_DIM, SCALE_LAYERS = 256, 4            # BASELINE.json configs[4], the scaled LightGCN
+SCALE_WIDTHS = (4, 50, 132, 200, 256)       # K3 against plain at each, both layouts and dtypes
+SCALE_NORTH_STAR_STEPS = 3
+SCALE_PARAMS_ATOL = 1e-5                    # tile vs ELL tables after the 20 steps at d = 256
 KERNEL_SOURCE = {
     "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
     "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
@@ -390,8 +414,26 @@ def phase_kernel_check(dev):
                 "v1_ms_large": _device_ms(lambda: _quant_v1(x, seed, out)),
                 "nearest_ms_large": _device_ms(lambda: quant.quantize_users_int8(x, out=out)),
                 "bound_ms_large": bound_ms,
+                # the nearest mode moves the same bytes with fewer operations
+                "nearest_bound_ms_large": bound_ms,
                 "gb_per_s_large": nbytes / ms / 1e6,
                 "share_of_bound_large": bound_ms / ms,
+            })
+        elif (n, d) == (200_000, 256):  # the north-star catalog of phase 13
+            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
+            record.update({
+                "shape_catalog_d256": [n, d],
+                "ms_catalog_d256": ms,
+                "call_ms_catalog_d256": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
+                "nearest_ms_catalog_d256": _device_ms(
+                    lambda: quant.quantize_users_int8(x, out=out)),
+                "plain_ms_catalog_d256": _cuda_ms(
+                    lambda: quant._quantize_rows_int8_reference(x, seed=seed), reps=5),
+                "nearest_plain_ms_catalog_d256": _cuda_ms(
+                    lambda: quant._quantize_users_int8_reference(x), reps=5),
+                "bound_ms_catalog_d256": bound_ms,
+                "bound_by_catalog_d256": bound_by,
+                "gb_per_s_catalog_d256": nbytes / ms / 1e6,
             })
         elif (n, d) == (1_024, 64):  # the largest request, nearest mode
             record.update({
@@ -812,13 +854,13 @@ def _profile_steps(trainer, users, pos, neg, steps: int = 5):
             "top_host_self_ms_and_calls_per_step": {k: [ms, n] for k, ms, n in host}}
 
 
-def _twin_trainers(dev, bundle, tmp, model_name, content=None):
+def _twin_trainers(dev, bundle, tmp, model_name, content=None, dim=64, layers=3):
     """A ``tile_spmm`` trainer and its ELL twin from the same params;
     returns ({True: tile, False: ell}, build seconds of each)."""
     trainers, build_s = {}, {}
     params = None
     for tile in (True, False):
-        cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048, tile_spmm=tile,
+        cfg = Config(embedding_dim=dim, n_layers=layers, batch_size=2048, tile_spmm=tile,
                      tile_min_fill=64, checkpoint_dir=tmp, results_dir=tmp,
                      model_name=model_name)
         model = get_model(model_name)(
@@ -865,9 +907,10 @@ def _twin_steps(trainers, users, pos, neg):
     return losses, step_ms
 
 
-def _check_twin_run(name, losses, launches, recall, ndcg):
-    """Finite falling losses, the two paths together, the launch count;
-    returns the largest relative loss gap."""
+def _check_twin_run(name, losses, launches, recall, ndcg, layers=3):
+    """Finite falling losses, the two paths together, the launch count
+    (2 a layer a step, 1 a layer for the validation forward); returns the
+    largest relative loss gap."""
     for tile, path in ((True, "tile"), (False, "ELL")):
         lo = losses[tile]
         check(np.isfinite(lo).all(), f"{name} {path} path: {TRAIN_STEPS} finite step losses")
@@ -876,10 +919,10 @@ def _check_twin_run(name, losses, launches, recall, ndcg):
     rel = np.abs(losses[True] - losses[False]) / np.abs(losses[False])
     check(rel.max() <= TRAIN_LOSS_RTOL,
           f"{name}: tile and ELL step losses agree (max rel diff {rel.max():.3g})")
-    want = 6 * TRAIN_STEPS + 3
+    want = 2 * layers * TRAIN_STEPS + layers
     check(launches == want,
-          f"{name}: tile_matvec launched {launches}x = 6 per step x {TRAIN_STEPS} "
-          f"+ 3 for validation")
+          f"{name}: tile_matvec launched {launches}x = {2 * layers} per step x {TRAIN_STEPS} "
+          f"+ {layers} for validation")
     check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (recall, ndcg)),
           f"{name}: validation Recall@20 {recall:.4f}, NDCG@20 {ndcg:.4f}")
     return float(rel.max())
@@ -2234,6 +2277,260 @@ def phase_layouts(dev, bundle, ref):
     return launches
 
 
+# ------------------------------------------------------------ phase 13: scale
+
+
+def _scale_tile_kernels(dev, bundle):
+    """(a) K3 at every width of ``SCALE_WIDTHS``: both layouts, f32 and
+    bf16 tiles, against the plain version on the books partition; the
+    times at d = 256 beside the bounds and ``torch.sparse.mm``."""
+    g = bundle.graph
+    n = g.num_nodes
+    part = partition_tiles(g, min_fill=64, tiles_per_step=8)
+    tiles = {(lay, dt): block_spmm.to_device_tiles(part, tile_dtype=dt, device=dev, layout=lay)
+             for lay in block_spmm.LAYOUTS for dt in (torch.float32, torch.bfloat16)}
+    errs = {}
+    for d in SCALE_WIDTHS:
+        emb = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(d),
+                          device=dev)
+        for key, t in tiles.items():
+            errs[(key, d)] = _check_tiles(t, emb, f"the books partition (d={d})")
+    d = SCALE_DIM
+    emb = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(d), device=dev)
+    csr = _tile_csr(part, n, dev)
+    lerr = (torch.sparse.mm(csr, emb) - block_spmm.tile_matvec(emb, tiles[("compressed",
+                                                                          torch.float32)]))
+    lerr = lerr.abs().max().item()
+    check(lerr <= TILE_F32_ATOL, f"torch.sparse.mm of the tile edges equals the kernel at "
+                                 f"d={d} (max abs diff {lerr:.3g})")
+    rec = {"shape_d256": [part.num_tiles, TILE, TILE, d],
+           "max_abs_err_d256": max(errs.values()),
+           "max_abs_err_by_width": {str(w): max(v for (k, dd), v in errs.items() if dd == w)
+                                    for w in SCALE_WIDTHS}}
+    names = {("compressed", torch.float32): "", ("compressed", torch.bfloat16): "bf16_",
+             ("dense", torch.float32): "dense_layout_",
+             ("dense", torch.bfloat16): "dense_layout_bf16_"}
+    for key, prefix in names.items():
+        t = tiles[key]
+        bound, by, _ = _tile_bound_ms(t, n, d)
+        rec[f"{prefix}ms_d256"] = _device_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
+        rec[f"{prefix}call_ms_d256"] = _cuda_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
+        rec[f"{prefix}bound_ms_d256"] = bound
+        rec[f"{prefix}bound_by_d256"] = by
+    rec["plain_ms_d256"] = _cuda_ms(
+        lambda: block_spmm._tile_matvec_reference(emb, tiles[("compressed", torch.float32)]),
+        reps=5)
+    rec["dense_layout_plain_ms_d256"] = _cuda_ms(
+        lambda: block_spmm._tile_matvec_reference(emb, tiles[("dense", torch.float32)]), reps=5)
+    rec["library_ms_d256"] = _device_ms(lambda: torch.sparse.mm(csr, emb))
+    print("scale_tiles: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _scale_books(dev, bundle):
+    """(a) LightGCN at dim 256, 4 layers on the books bundle: the tile
+    trainer (compressed K3 at d = 256) and its fused ELL twin take the same
+    20 steps, then 64 users from an int8 catalog.  Returns the measurements
+    and the launches of each main path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    trainers, build_s = _twin_trainers(dev, bundle, tmp, "LightGCN", dim=SCALE_DIM,
+                                       layers=SCALE_LAYERS)
+    users, pos, neg = _twin_batches(dev, trainers[True], bundle)
+    name = f"LightGCN d={SCALE_DIM} x {SCALE_LAYERS} layers"
+
+    # --- the main path (training): counts from 0, read right after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_spmm.tile_matvec.launches = 0
+    losses, step_ms = _twin_steps(trainers, users, pos, neg)
+    recall, ndcg = trainers[True].validate()
+    k3 = block_spmm.tile_matvec.launches
+    # --- end of the main path ---
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel_max = _check_twin_run(name, losses, k3, recall, ndcg, layers=SCALE_LAYERS)
+
+    params = trainers[True].model.params()
+    params_diff = max((params[k] - trainers[False].model.params()[k]).abs().max().item()
+                      for k in ("user_embedding", "item_embedding"))
+    check(params_diff <= SCALE_PARAMS_ATOL,
+          f"{name}: tile and ELL tables after {TRAIN_STEPS} steps within {SCALE_PARAMS_ATOL} "
+          f"(max abs diff {params_diff:.3g})")
+    cfg = Config(embedding_dim=SCALE_DIM, n_layers=SCALE_LAYERS)
+    served = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                   device=dev)
+    users64 = np.unique(bundle.train.user_idx)[:64]
+    # --- the main path (int8 serving): counts from 0, read right after ---
+    quant.quantize_rows_int8.launches = 0
+    quant.quantize_users_int8.launches = 0
+    rq = Retriever.from_params(served, params, bundle, quantize=True)
+    v, i_q = rq.recommend(users64, k=K)
+    k2 = {"quantize_rows_int8": quant.quantize_rows_int8.launches,
+          "quantize_users_int8": quant.quantize_users_int8.launches}
+    # --- end of the main path ---
+    check(k2 == {"quantize_rows_int8": 1, "quantize_users_int8": 1},
+          f"{name}: 64 users from an int8 catalog [{bundle.num_items}, {SCALE_DIM}]: K2 "
+          f"stochastic {k2['quantize_rows_int8']}x, nearest {k2['quantize_users_int8']}x")
+    _, i_f = Retriever.from_params(served, params, bundle).recommend(users64, k=K)
+    overlap = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(i_f, i_q)]))
+    seen = _seen_sets(bundle, users64)
+    check(v.shape == (64, K) and np.isfinite(v).all() and overlap >= MIN_INT8_OVERLAP
+          and all(not (set(i_q[j].tolist()) & seen[j]) for j in range(64)),
+          f"{name}: int8 answers finite, unseen, top-{K} overlap with f32 {overlap:.4f}")
+    meas = {
+        "steps": TRAIN_STEPS, "batch": 2048, "dim": SCALE_DIM, "layers": SCALE_LAYERS,
+        "ms_per_step_tile": step_ms[True], "ms_per_step_ell": step_ms[False],
+        "trainer_build_s_tile": build_s[True], "trainer_build_s_ell": build_s[False],
+        "loss_first_tile": float(losses[True][0]), "loss_last_tile": float(losses[True][-1]),
+        "loss_max_rel_diff": rel_max, "peak_mem_gib": peak,
+        "val_recall20": recall, "val_ndcg20": ndcg,
+        # after 20 Adam steps: how far apart the two paths' tables are
+        "params_max_abs_diff": params_diff, "int8_overlap_top20": overlap,
+    }
+    print("scale_books: " + json.dumps(meas), flush=True)
+    del trainers, rq
+    return meas, k3, k2
+
+
+def _eval_batch_pieces(tr):
+    """Measurement only: ms of one evaluation batch of ``eval_user_batch``
+    users on the trainer's final tables, whole (``topk_eval_batch``) and in
+    its pieces: the scores, the full stable sort that selects in
+    ``lax.top_k``'s tie order, and ``torch.topk`` for comparison."""
+    from gcn_recommendation_tpu_torch.ops.topk import topk_eval_batch
+
+    with torch.no_grad():
+        fu, fi, *_ = tr._forward_eval()
+        batch = tr._eval_batches[0]
+        u = fu.index_select(0, batch[0])
+        scores = u @ fi.T
+
+        def ms(fn):
+            return _cuda_ms(fn, reps=3, windows=3, warmup=1)
+
+        out = {"users": int(u.shape[0]), "items": int(fi.shape[0]),
+               "batch": ms(lambda: topk_eval_batch(fu, fi, *batch, K)),
+               "scores": ms(lambda: u @ fi.T),
+               "stable_sort": ms(lambda: torch.sort(scores, dim=1, descending=True,
+                                                    stable=True)),
+               "topk": ms(lambda: torch.topk(scores, K, dim=1))}
+    del fu, fi, scores
+    return out
+
+
+def _scale_north_star(dev):
+    """(b) The north-star graph (``tools/exp_scale.py``'s constants) at dim
+    256, 4 layers: the default ``Trainer`` (source-chunked by the knee
+    rule) takes 3 steps, one validation, then an int8 catalog serves 1, 64
+    and 1024 users."""
+    from gcn_recommendation_tpu_torch.tools import exp_scale as xs
+
+    nb, etl_s = xs.build_bundle()
+    g = nb.graph
+    check(g.num_nodes == 720_000 and 32_000_000 < g.nnz < 34_000_000,
+          f"the north-star graph: {g.num_nodes:,} nodes, {g.nnz:,} nonzeros "
+          f"(ETL {etl_s:.1f} s on the host)")
+    name = f"north-star d={SCALE_DIM} x {SCALE_LAYERS} layers"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_north_star_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    cfg = Config(embedding_dim=SCALE_DIM, n_layers=SCALE_LAYERS, batch_size=2048,
+                 checkpoint_dir=tmp, results_dir=tmp)
+    model = get_model("LightGCN")(nb.num_users, nb.num_items, nb.num_brands, cfg, device=dev)
+    model.init(torch.Generator().manual_seed(42))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, model, nb)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    chunks = len(tr.graph.chunk_gather_idx) if isinstance(tr.graph, spmm.ChunkedDeviceGraph) \
+        else 0
+    check(chunks == spmm.num_chunks_for(g.num_nodes, SCALE_DIM) == 2,
+          f"{name}: the Trainer takes the source-chunked layout, {chunks} chunks by the knee "
+          f"rule")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = epoch_batches(gen, tr.n_train, 2048, dev)[:SCALE_NORTH_STAR_STEPS]
+    users, pos = tr.train_users[idx], tr.train_items[idx]
+    neg = sample_negatives(gen, users, tr.pos_keys, num_items=nb.num_items)
+    out = [tr.train_step(users[0], pos[0], neg[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, SCALE_NORTH_STAR_STEPS):
+        out.append(tr.train_step(users[s], pos[s], neg[s], step=s))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (SCALE_NORTH_STAR_STEPS - 1)
+    losses = torch.stack(out).cpu().numpy()
+    check(np.isfinite(losses).all(), f"{name}: {SCALE_NORTH_STAR_STEPS} finite step losses "
+                                     f"({', '.join(f'{x:.5f}' for x in losses)})")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30 - base
+
+    n_val = len(np.unique(nb.val.user_idx))
+    t0 = time.perf_counter()
+    recall, ndcg = tr.validate()
+    val_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (recall, ndcg)),
+          f"{name}: validation over all {n_val:,} users x {nb.num_items:,} items, "
+          f"Recall@{K} {recall:.4f}, NDCG@{K} {ndcg:.4f}")
+    # measurement only: one evaluation batch in pieces, and a profile of two steps
+    eval_ms = _eval_batch_pieces(tr)
+    print("profile_north_star: " + json.dumps(_profile_steps(tr, users, pos, neg, steps=2)),
+          flush=True)
+
+    params = tr.params()
+    del tr
+    torch.cuda.empty_cache()
+    # --- the main path (int8 serving): xs.serve counts K2 from 0 over the load
+    # and one request of each size, and reads the counts right after ---
+    served = xs.serve(model, params, nb, dev, True, np.random.default_rng(0))
+    # --- end of the main path ---
+    k2 = dict(zip(("quantize_rows_int8", "quantize_users_int8"), served["k2_launches"]))
+    answers = served["answers"]
+    check(k2 == {"quantize_rows_int8": 1, "quantize_users_int8": len(answers)},
+          f"{name}: int8 catalog [{nb.num_items}, {SCALE_DIM}] built by K2 once (stochastic), "
+          f"{k2['quantize_users_int8']} requests quantized by K2 (nearest)")
+    users64, _, items64 = answers[1]
+    seen = _seen_sets(nb, users64)
+    check(all(v.shape == (len(u), K) and np.isfinite(v).all() for u, v, _ in answers)
+          and all(not (set(items64[j].tolist()) & seen[j]) for j in range(len(users64))),
+          f"{name}: int8 answers to {', '.join(str(len(u)) for u, _, _ in answers)} users "
+          f"finite, no seen item")
+    meas = {
+        "nodes": g.num_nodes, "nnz": int(g.nnz), "train": len(nb.train),
+        "etl_s": etl_s, "trainer_build_s": setup_s, "chunks": chunks,
+        "ms_per_step": step_ms, "steps": SCALE_NORTH_STAR_STEPS,
+        "losses": [float(x) for x in losses],
+        "peak_mem_gib_train": train_peak,
+        "val_users": n_val, "val_s": val_s, "val_users_per_s": n_val / val_s,
+        "val_recall20": recall, "val_ndcg20": ndcg, "eval_batch_ms": eval_ms,
+        "int8_load_s": served["load_s"],
+        "int8_request_ms": {str(n): t for n, t in served["request_ms"].items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 - base,
+    }
+    print("scale_north_star: " + json.dumps(meas), flush=True)
+    del served, model, params
+    torch.cuda.empty_cache()
+    return meas, k2
+
+
+def phase_scale(dev, bundle):
+    """Phase 13: the scaled configuration (dim 256, 4 layers).  Returns
+    K3's record at d = 256 and the launches of each main path (K2's
+    d = 256 shape is timed in phase 3)."""
+    t_phase = time.perf_counter()
+    tile_rec = _scale_tile_kernels(dev, bundle)
+    _, k3, k2_books = _scale_books(dev, bundle)
+    _, k2_north = _scale_north_star(dev)
+    print(f"scale: phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    tile_rec["launches_scale_path"] = k3
+    quant_launches = {
+        "launches_scale_books_stochastic": k2_books["quantize_rows_int8"],
+        "launches_scale_books_nearest": k2_books["quantize_users_int8"],
+        "launches_scale_north_star_stochastic": k2_north["quantize_rows_int8"],
+        "launches_scale_north_star_nearest": k2_north["quantize_users_int8"],
+    }
+    return tile_rec, quant_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -2266,6 +2563,7 @@ def main() -> int:
     daemon_launches = phase_daemon(dev, bundle)
     mesh_launches = phase_mesh(dev, bundle, train_ref["per_layer_losses"])
     layout_launches = phase_layouts(dev, bundle, train_ref)
+    scale_tile_record, scale_quant_launches = phase_scale(dev, bundle)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -2279,8 +2577,10 @@ def main() -> int:
     quant_record["launches_mesh_nearest"] = mesh_launches["quantize_users_int8"]
     quant_record["launches_layouts_stochastic"] = layout_launches["quantize_rows_int8"]
     quant_record["launches_layouts_nearest"] = layout_launches["quantize_users_int8"]
+    quant_record.update(scale_quant_launches)
     tile_record["launches"] = train_launches["tile_matvec"]
     tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]
+    tile_record.update(scale_tile_record)
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),

@@ -21,8 +21,10 @@
 // dependent loads (row pointer -> edge -> source row).  The dense tiles of
 // the same partition are 219 MB.
 //
-// Design.  A group of 8, 16 or 32 lanes owns one output row (16 lanes at
-// d = 64: one float4 a lane, one 256-byte request a source row).  What a
+// Design.  A group of 8, 16 or 32 lanes owns one output row of one slab of
+// 128 columns (16 lanes at d = 64: one float4 a lane, one 256-byte request
+// a source row); a wider embedding runs ceil(d / 128) slabs as the grid's
+// second dimension, each over the same edges (d = 256: two).  What a
 // short launch like this waits for is the chain of dependent loads of its
 // longest row (row pointer -> edge -> source row), so the group shortens
 // it: each lane loads one edge of the row (a coalesced read of up to
@@ -39,7 +41,9 @@
 // weights: the weight is widened, the embedding element is rounded to
 // bfloat16 and widened (the TPU kernel's e_refs[j][:].astype(compute_dtype)),
 // their product is exact in float32 and only the sum rounds.  A source node
-// past N reads as zeros, as a ragged last window does.
+// past N reads as zeros, as a ragged last window does.  Widths that are not
+// a multiple of 4 are padded with zero columns by the wrapper
+// (ops/block_spmm.py), so every row is whole float4s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +54,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxD = 128;
+constexpr int kSlab = 128;  // columns of one slab: 32 lanes x one float4
 constexpr int kBatch = 8;  // gathers in flight per lane; divides every group size
 
 template <typename TW>
@@ -61,12 +65,13 @@ __device__ __forceinline__ float weight_of(const TW* w, int e) {
     return __ldg(w + e);
 }
 
-// one source row's float4 for this lane; zeros past N
+// one source row's float4 for this lane (emb already at the slab's first
+// column, rows `ld` floats apart); zeros past N
 template <bool kRound>
 __device__ __forceinline__ float4 gather(const float* __restrict__ emb, int src,
-                                         long long n, int d, int lane) {
+                                         long long n, int ld, int lane) {
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (src < n) v = __ldg(reinterpret_cast<const float4*>(emb + (long long)src * d) + lane);
+  if (src < n) v = __ldg(reinterpret_cast<const float4*>(emb + (long long)src * ld) + lane);
   if constexpr (kRound) {  // two values a conversion, widened again by shifts
     const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
     const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
@@ -93,7 +98,12 @@ tile_gather_spmm_kernel(const int32_t* __restrict__ row_ptr,
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
   const int row = blockIdx.x * (kThreads >> lanes_log2) + (threadIdx.x >> lanes_log2);
-  const bool active = lane < (d >> 2);  // idle lanes still fetch and hand on edges
+  // this block's slab: columns col0 .. col0 + width of rows d floats apart
+  const int col0 = blockIdx.y * kSlab;
+  const int width = min(kSlab, d - col0);
+  emb += col0;
+  out += col0;
+  const bool active = lane < (width >> 2);  // idle lanes still fetch and hand on edges
   // this group's lanes of the warp
   const unsigned group_mask =
       lanes == 32 ? 0xffffffffu : ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
@@ -140,11 +150,11 @@ template <typename TW>
 int launch(const void* row_ptr, const void* edge_src, const void* edge_w,
            const void* emb, void* out, int n_rows, long long n, int d,
            cudaStream_t stream) {
-  // lanes per row: the power of two that holds d / 4 float4s, at least 8
+  // lanes per row: the power of two that holds a slab's float4s, at least 8
   const int lanes_log2 = d <= 32 ? 3 : d <= 64 ? 4 : 5;
   const int rows_per_block = kThreads >> lanes_log2;
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  tile_gather_spmm_kernel<TW><<<blocks, kThreads, 0, stream>>>(
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block, (d + kSlab - 1) / kSlab);
+  tile_gather_spmm_kernel<TW><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)row_ptr, (const int32_t*)edge_src, (const TW*)edge_w,
       (const float*)emb, (float*)out, n_rows, n, d, lanes_log2);
   return (int)cudaGetLastError();
@@ -153,7 +163,7 @@ int launch(const void* row_ptr, const void* edge_src, const void* edge_w,
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 on success), or -1 for
-// a width the kernel does not take (d must be a multiple of 4 in [4, 128]).
+// a width the kernel does not take (d must be a positive multiple of 4).
 // row_ptr [n_rows + 1] int32, edge_src [E] int32, edge_w [E] (float32, or
 // bfloat16 when w_is_bf16), emb [n, d] float32, out [n_rows, d] float32;
 // all contiguous, emb and out 16-byte aligned.
@@ -161,7 +171,7 @@ extern "C" int tile_gather_spmm_launch(const void* row_ptr, const void* edge_src
                                        const void* edge_w, int w_is_bf16,
                                        const void* emb, void* out, int n_rows,
                                        long long n, int d, void* stream) {
-  if (d < 4 || d > kMaxD || d % 4 != 0) return -1;
+  if (d < 4 || d % 4 != 0 || (d + kSlab - 1) / kSlab > 65535) return -1;
   if (n_rows <= 0) return 0;
   if (w_is_bf16)
     return launch<__nv_bfloat16>(row_ptr, edge_src, edge_w, emb, out, n_rows, n, d,

@@ -52,8 +52,16 @@
 //   per 128 explicit __fmaf_rn (the build's -fmad=false stops only implicit
 //   contraction), conflict-free shared reads (tile rows padded by 4 floats).
 //
+// * Width.  A thread block covers at most 128 columns (a slab); a wider
+//   embedding runs the kernel once per slab of 128 columns, each launch
+//   reading the slab's columns of rows `ld` floats apart and writing the
+//   same columns of the output and the partial sums, so every tile is read
+//   once per slab (d = 256: twice).  The second pass sums whole rows.
+//
 // Ragged edge: when N is not a multiple of 128, window rows >= N read as
 // zeros (cp.async with a source size of 0); the embedding is not padded.
+// Widths that are not a multiple of 4 are padded with zero columns by the
+// wrapper (ops/block_spmm.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +70,7 @@
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kMaxD = 128;
+constexpr int kSlab = 128;  // the most columns one launch covers
 
 // float32 path: a stage holds kKCF32 columns of a tile
 constexpr int kKCF32 = 64;
@@ -124,23 +132,25 @@ __device__ __forceinline__ BlockRange block_range(const int4* __restrict__ segme
 }
 
 // where a finished segment goes: its row block of the output (slot < 0) or
-// its slot of the partial sums
+// its slot of the partial sums; rows `ld` floats apart
 __device__ __forceinline__ float* segment_dest(const int4& sg, float* partials, float* out,
-                                               int d) {
-  return sg.w < 0 ? out + (long long)sg.z * kTile * d : partials + (long long)sg.w * kTile * d;
+                                               int ld) {
+  return sg.w < 0 ? out + (long long)sg.z * kTile * ld : partials + (long long)sg.w * kTile * ld;
 }
 
 // ------------------------------------------------------------------ float32
 
+// one slab: emb, partials and out start at the slab's first column, d is
+// the slab's width (<= kSlab), ld the row stride of all three
 template <int kKC, int kStages>
-__global__ void __launch_bounds__(kRowGroups * kMaxD / 4)
+__global__ void __launch_bounds__(kRowGroups * kSlab / 4)
 tile_spmm_f32_kernel(const float* __restrict__ tile_a,
                      const int32_t* __restrict__ list_tile,
                      const int32_t* __restrict__ list_col,
                      const int4* __restrict__ segments,
                      const int32_t* __restrict__ block_seg_ptr,
                      const float* __restrict__ emb, float* __restrict__ partials,
-                     float* __restrict__ out, long long n, int d) {
+                     float* __restrict__ out, long long n, int d, int ld) {
   static_assert(kKC == 32 || kKC == 64, "a tile row of a stage is 8 or 16 float4s");
   constexpr int kChunksPerTile = kTile / kKC;
   constexpr int kALd = kKC + 4;  // staged tile row stride, floats: conflict-free reads
@@ -175,11 +185,11 @@ tile_spmm_f32_kernel(const float* __restrict__ tile_a,
     for (int row = a_row; row < kTile; row += a_step)
       cp_async16_stream(a_s + row * kALd, a_g + row * kTile, policy);
     const long long base = (long long)list_col[idx] * kTile + k0;
-    const float* e_g = emb + base * d + tc * 4;
+    const float* e_g = emb + base * ld + tc * 4;
 #pragma unroll
     for (int row = tr; row < kKC; row += kRowGroups) {
       const bool inside = base + row < n;  // rows past N: zero fill, nothing read
-      cp_async16(e_s + row * d, inside ? e_g + (long long)row * d : emb, inside ? 16 : 0);
+      cp_async16(e_s + row * d, inside ? e_g + (long long)row * ld : emb, inside ? 16 : 0);
     }
   };
 
@@ -226,10 +236,10 @@ tile_spmm_f32_kernel(const float* __restrict__ tile_a,
     // the segment's last chunk: write its sum and start the next segment
     if (q % kChunksPerTile == kChunksPerTile - 1 &&
         br.list_begin + q / kChunksPerTile + 1 == sg.y) {
-      float* dest = segment_dest(sg, partials, out, d);
+      float* dest = segment_dest(sg, partials, out, ld);
 #pragma unroll
       for (int m = 0; m < kRowsPerThread; ++m) {
-        *reinterpret_cast<float4*>(dest + (tr + kRowGroups * m) * d + tc * 4) =
+        *reinterpret_cast<float4*>(dest + (tr + kRowGroups * m) * ld + tc * 4) =
             make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
         acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
       }
@@ -281,7 +291,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// kNT16: 16-column groups of the output held in registers (dpad <= 16 * kNT16)
+// kNT16: 16-column groups of the output held in registers (dpad <= 16 * kNT16).
+// One slab: win, partials and out start at the slab's first column; d / dpad
+// are the slab's width and padded width (<= kSlab), ld / win_ld the row
+// strides of the output and partials / of the window
 template <int kKC, int kNT16, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
 tile_spmm_bf16_kernel(const __nv_bfloat16* __restrict__ tile_a,
@@ -290,7 +303,7 @@ tile_spmm_bf16_kernel(const __nv_bfloat16* __restrict__ tile_a,
                       const int4* __restrict__ segments,
                       const int32_t* __restrict__ block_seg_ptr,
                       const __nv_bfloat16* __restrict__ win, float* __restrict__ partials,
-                      float* __restrict__ out, int d, int dpad) {
+                      float* __restrict__ out, int d, int dpad, int ld, int win_ld) {
   static_assert(kKC == 32 || kKC == 64 || kKC == 128, "kKC / 8 pieces of 16 bytes a tile row");
   constexpr int kChunksPerTile = kTile / kKC;
   constexpr int kBLd = kKC + 8;  // staged tile row stride, bf16: an odd multiple of 16 bytes
@@ -328,11 +341,11 @@ tile_spmm_bf16_kernel(const __nv_bfloat16* __restrict__ tile_a,
     for (int row = a_row; row < kTile; row += kMmaThreads / kAPieces)
       cp_async16_stream(a_s + row * kBLd, a_g + row * kTile, policy);
     const __nv_bfloat16* e_g =
-        win + ((long long)list_col[idx] * kTile + k0) * dpad + e_piece * 8;
+        win + ((long long)list_col[idx] * kTile + k0) * win_ld + e_piece * 8;
     if (e_lane) {
 #pragma unroll
       for (int row = e_row; row < kKC; row += kMmaThreads / 16)
-        cp_async16(e_s + row * lde, e_g + (long long)row * dpad, 16);
+        cp_async16(e_s + row * lde, e_g + (long long)row * win_ld, 16);
     }
   };
 
@@ -382,14 +395,14 @@ tile_spmm_bf16_kernel(const __nv_bfloat16* __restrict__ tile_a,
 
     if (q % kChunksPerTile == kChunksPerTile - 1 &&
         br.list_begin + q / kChunksPerTile + 1 == sg.y) {
-      float* dest = segment_dest(sg, partials, out, d);
+      float* dest = segment_dest(sg, partials, out, ld);
       const int row = warp * 16 + (lane >> 2);
 #pragma unroll
       for (int j = 0; j < 2 * kNT16; ++j) {
         const int col = j * 8 + (lane & 3) * 2;
         if (col < d) {
-          *reinterpret_cast<float2*>(dest + row * d + col) = make_float2(run[j][0], run[j][1]);
-          *reinterpret_cast<float2*>(dest + (row + 8) * d + col) =
+          *reinterpret_cast<float2*>(dest + row * ld + col) = make_float2(run[j][0], run[j][1]);
+          *reinterpret_cast<float2*>(dest + (row + 8) * ld + col) =
               make_float2(run[j][2], run[j][3]);
         }
         run[j][0] = run[j][1] = run[j][2] = run[j][3] = 0.0f;
@@ -434,23 +447,31 @@ struct Plan {
   int n_blocks;
 };
 
+// one launch per slab of kSlab columns
 int launch_f32(const void* tile_a, const Plan& p, const float* emb, float* partials,
                float* out, long long n, int d, cudaStream_t stream) {
-  const int threads = kRowGroups * (d / 4);
-  const size_t smem =
-      sizeof(float) * kStagesF32 * ((size_t)kTile * (kKCF32 + 4) + (size_t)kKCF32 * d);
-  cudaError_t err = cudaFuncSetAttribute(tile_spmm_f32_kernel<kKCF32, kStagesF32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tile_spmm_f32_kernel<kKCF32, kStagesF32><<<p.n_blocks, threads, smem, stream>>>(
-      (const float*)tile_a, p.list_tile, p.list_col, p.segments, p.block_seg_ptr, emb,
-      partials, out, n, d);
-  return (int)cudaGetLastError();
+  for (int c0 = 0; c0 < d; c0 += kSlab) {
+    const int w = d - c0 < kSlab ? d - c0 : kSlab;
+    const int threads = kRowGroups * (w / 4);
+    const size_t smem =
+        sizeof(float) * kStagesF32 * ((size_t)kTile * (kKCF32 + 4) + (size_t)kKCF32 * w);
+    cudaError_t err = cudaFuncSetAttribute(tile_spmm_f32_kernel<kKCF32, kStagesF32>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    tile_spmm_f32_kernel<kKCF32, kStagesF32><<<p.n_blocks, threads, smem, stream>>>(
+        (const float*)tile_a, p.list_tile, p.list_col, p.segments, p.block_seg_ptr, emb + c0,
+        partials ? partials + c0 : nullptr, out + c0, n, w, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
+// one slab: d / dpad its width and padded width, ld / win_ld the row strides
 template <int kKC, int kNT16, int kStages, int kMinBlocks>
 int launch_bf16(const void* tile_a, const Plan& p, const __nv_bfloat16* win, float* partials,
-                float* out, int d, int dpad, cudaStream_t stream) {
+                float* out, int d, int dpad, int ld, int win_ld, cudaStream_t stream) {
   const size_t smem =
       sizeof(__nv_bfloat16) * kStages * ((size_t)kTile * (kKC + 8) + (size_t)kKC * (dpad + 8));
   auto kernel = tile_spmm_bf16_kernel<kKC, kNT16, kStages, kMinBlocks>;
@@ -459,14 +480,14 @@ int launch_bf16(const void* tile_a, const Plan& p, const __nv_bfloat16* win, flo
   if (err != cudaSuccess) return (int)err;
   kernel<<<p.n_blocks, kMmaThreads, smem, stream>>>(
       (const __nv_bfloat16*)tile_a, p.list_tile, p.list_col, p.segments, p.block_seg_ptr, win,
-      partials, out, d, dpad);
+      partials, out, d, dpad, ld, win_ld);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 on success), or -1 for
-// a width the kernel does not take (d must be a multiple of 4 in [4, 128]).
+// a width the kernel does not take (d must be a positive multiple of 4).
 // tile_a [T, 128, 128] (float32, or bfloat16 when tile_is_bf16); the plan of
 // ops/block_spmm.py::plan_tile_ranges: list_tile / list_col [Ta] int32,
 // segments [S, 4] int32, block_seg_ptr [n_blocks + 1] int32, reduce_rows
@@ -480,7 +501,7 @@ extern "C" int tile_spmm_launch(const void* tile_a, int tile_is_bf16, const void
                                 const void* reduce_rows, const void* reduce_ptr, int n_reduce,
                                 const void* emb, void* window, void* partials, void* out,
                                 long long n, int d, void* stream_ptr) {
-  if (d < 4 || d > kMaxD || d % 4 != 0) return -1;
+  if (d < 4 || d % 4 != 0) return -1;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Plan p = {(const int32_t*)list_tile, (const int32_t*)list_col, (const int4*)segments,
                   (const int32_t*)block_seg_ptr, n_blocks};
@@ -495,12 +516,18 @@ extern "C" int tile_spmm_launch(const void* tile_a, int tile_is_bf16, const void
         (const float*)emb, (__nv_bfloat16*)window, n, rows_pad, d, dpad);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
-    if (dpad <= 64)
-      err = launch_bf16<kKCBf16, 4, 2, 2>(tile_a, p, (const __nv_bfloat16*)window, (float*)partials,
-                                 (float*)out, d, dpad, stream);
-    else
-      err = launch_bf16<kKCBf16, 8, 2, 1>(tile_a, p, (const __nv_bfloat16*)window, (float*)partials,
-                                 (float*)out, d, dpad, stream);
+    // one launch per slab of kSlab columns of the window
+    for (int c0 = 0; c0 < d && err == 0; c0 += kSlab) {
+      const int w = d - c0 < kSlab ? d - c0 : kSlab;
+      const int wpad = dpad - c0 < kSlab ? dpad - c0 : kSlab;
+      const __nv_bfloat16* win = (const __nv_bfloat16*)window + c0;
+      float* part = partials ? (float*)partials + c0 : nullptr;
+      float* o = (float*)out + c0;
+      if (wpad <= 64)
+        err = launch_bf16<kKCBf16, 4, 2, 2>(tile_a, p, win, part, o, w, wpad, d, dpad, stream);
+      else
+        err = launch_bf16<kKCBf16, 8, 2, 1>(tile_a, p, win, part, o, w, wpad, d, dpad, stream);
+    }
   }
   if (err != 0) return err;
   if (n_reduce > 0) {

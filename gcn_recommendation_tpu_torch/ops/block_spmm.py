@@ -46,9 +46,6 @@ from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.tiles import TILE, TilePartition
 from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, _ell_matvec
 
-# widest embedding the kernels take
-MAX_D = 128
-
 LAYOUTS = ("dense", "compressed")
 
 # ``layout="auto"``: tiles whose fill (nonzeros / (T * 128 * 128)) reaches
@@ -356,14 +353,19 @@ def _tile_matvec_cuda(emb: torch.Tensor, tiles: TileDeviceArrays) -> torch.Tenso
         )
     x = emb.float().contiguous()
     n, d = x.shape
-    if d % 4 or not 4 <= d <= MAX_D:
-        raise ValueError(f"the tile kernels take d a multiple of 4 in [4, {MAX_D}], got {d}")
+    if d < 1:
+        raise ValueError(f"the tile kernels take d >= 1, got {d}")
+    # the kernels read rows as whole float4s: other widths get zero columns
+    # in a scratch copy, sliced off the output
+    dk = -(-d // 4) * 4
+    if dk != d:
+        x = torch.nn.functional.pad(x, (0, dk - d))
     if x.data_ptr() % 16:
         raise ValueError("the tile kernels need a 16-byte aligned embedding")
     r = tiles.n_row_blocks
-    out = torch.empty((r * TILE, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((r * TILE, dk), dtype=torch.float32, device=x.device)
     if r == 0:
-        return out
+        return out[:, :d]
     bf16 = ctypes.c_int(int(a.dtype == torch.bfloat16))
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
@@ -371,16 +373,16 @@ def _tile_matvec_cuda(emb: torch.Tensor, tiles: TileDeviceArrays) -> torch.Tenso
             err = load_library("tile_gather_spmm").tile_gather_spmm_launch(
                 _ptr(tiles.edge_row_ptr), _ptr(tiles.edge_src), _ptr(a), bf16,
                 _ptr(x), _ptr(out), ctypes.c_int(r * TILE), ctypes.c_int64(n),
-                ctypes.c_int(d), stream,
+                ctypes.c_int(dk), stream,
             )
         else:
             p = tiles.plan
             if p.max_col * TILE >= n:
                 raise ValueError(f"a tile's column block starts past the {n} embedding rows")
-            partials = torch.empty((p.n_partials, TILE, d), dtype=torch.float32, device=x.device)
+            partials = torch.empty((p.n_partials, TILE, dk), dtype=torch.float32, device=x.device)
             # bf16 tiles: the embedding rounded to bf16, rows padded to whole
             # windows and columns to a multiple of 16 (written by the launcher)
-            window = (torch.empty((-(-n // TILE) * TILE, -(-d // 16) * 16),
+            window = (torch.empty((-(-n // TILE) * TILE, -(-dk // 16) * 16),
                                   dtype=torch.bfloat16, device=x.device)
                       if a.dtype == torch.bfloat16 else None)
             err = load_library("tile_spmm").tile_spmm_launch(
@@ -388,17 +390,18 @@ def _tile_matvec_cuda(emb: torch.Tensor, tiles: TileDeviceArrays) -> torch.Tenso
                 _ptr(p.block_seg_ptr), ctypes.c_int(p.n_blocks), _ptr(p.reduce_rows),
                 _ptr(p.reduce_ptr), ctypes.c_int(int(p.reduce_rows.shape[0])),
                 _ptr(x), _ptr(window), _ptr(partials), _ptr(out), ctypes.c_int64(n),
-                ctypes.c_int(d), stream,
+                ctypes.c_int(dk), stream,
             )
     if err != 0:
         raise RuntimeError(f"{tiles.layout} tile kernel launch failed: CUDA error {err}")
     tile_matvec.launches += 1
-    return out
+    return out if dk == d else out[:, :d].contiguous()
 
 
 def tile_matvec(emb: torch.Tensor, tiles: TileDeviceArrays) -> torch.Tensor:
-    """Compact tile output [R*128, d] float32 for node-order ``emb`` [N, d]:
-    on a CUDA tensor the CUDA kernel of the tiles' layout (it launches or
+    """Compact tile output [R*128, d] float32 for node-order ``emb`` [N, d],
+    any ``d >= 1`` (the kernels cover the columns in slabs of 128): on a
+    CUDA tensor the CUDA kernel of the tiles' layout (it launches or
     raises), on a CPU tensor the plain version."""
     if emb.device.type == "cuda":
         return _tile_matvec_cuda(emb, tiles)

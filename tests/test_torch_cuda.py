@@ -201,35 +201,31 @@ def test_tile_kernel_matches_plain_on_card(card, bundle, dtype, d):
 
 def test_tile_kernel_refuses_what_it_cannot_take(card, bundle):
     part = partition_tiles(bundle.graph, min_fill=16, tiles_per_step=8)
-    tiles = block_spmm.to_device_tiles(part, device=card)
     n = bundle.graph.num_nodes
-    with pytest.raises(ValueError, match="multiple of 4"):
-        block_spmm.tile_matvec(torch.zeros((n, 6), device=card), tiles)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        block_spmm.tile_matvec(torch.zeros((n, 132), device=card), tiles)
-    with pytest.raises(ValueError, match="aligned"):
-        block_spmm.tile_matvec(torch.zeros((n * 8 + 1,), device=card)[1:].view(n, 8), tiles)
+    # the widths and the alignment: test_each_layouts_wrapper_refuses_what_its_kernel_cannot_take
     cpu_tiles = block_spmm.to_device_tiles(part, device="cpu")
     with pytest.raises(ValueError, match="tiles on cpu"):
         block_spmm.tile_matvec(torch.zeros((n, 8), device=card), cpu_tiles)
 
 
-def test_tile_gradient_matches_ell_on_card(card, bundle):
+@pytest.mark.parametrize("layout,d", [("auto", 32), ("compressed", 256), ("dense", 256)])
+def test_tile_gradient_matches_ell_on_card(card, bundle, layout, d):
     g = bundle.graph
     part = partition_tiles(g, min_fill=16, tiles_per_step=8)
     res, full = to_device_graph(part.residual, device=card), to_device_graph(g, device=card)
-    tiles = block_spmm.to_device_tiles(part, device=card)
-    x = torch.randn((g.num_nodes, 32), device=card).requires_grad_(True)
+    tiles = block_spmm.to_device_tiles(part, device=card, layout=layout)
+    x = torch.randn((g.num_nodes, d), device=card).requires_grad_(True)
     (g_tile,) = torch.autograd.grad((block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
     (g_ell,) = torch.autograd.grad((propagate_ell(
         x, full.bucket_nbr_idx, full.bucket_nbr_w, full.gather_idx, full.dense_mat) ** 2).sum(), x)
     assert (g_tile - g_ell).abs().max().item() <= 1e-4
 
 
-def test_train_step_launches_the_kernel_twice_per_layer(card, bundle):
+@pytest.mark.parametrize("d,layers", [(32, 3), (256, 4)])  # 256 x 4: BASELINE configs[4]
+def test_train_step_launches_the_kernel_twice_per_layer(card, bundle, d, layers):
     losses = {}
     for tile in (True, False):
-        cfg = Config(embedding_dim=32, n_layers=3, batch_size=512, tile_spmm=tile,
+        cfg = Config(embedding_dim=d, n_layers=layers, batch_size=512, tile_spmm=tile,
                      tile_min_fill=16)
         m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
                                   device=card)
@@ -242,7 +238,7 @@ def test_train_step_launches_the_kernel_twice_per_layer(card, bundle):
             assert tr.graph.tiles.layout == "compressed" and tr.graph.tiles.tile_a is None
         before = block_spmm.tile_matvec.launches
         losses[tile] = tr.train_step(tr.train_users[rows], tr.train_items[rows], neg).item()
-        assert block_spmm.tile_matvec.launches - before == (6 if tile else 0)
+        assert block_spmm.tile_matvec.launches - before == (2 * layers if tile else 0)
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
 
 
@@ -250,6 +246,10 @@ def test_train_step_launches_the_kernel_twice_per_layer(card, bundle):
 @pytest.mark.parametrize("dtype,d", [
     (torch.float32, 64), (torch.bfloat16, 64), (torch.float32, 48), (torch.bfloat16, 48),
     (torch.float32, 4), (torch.bfloat16, 20), (torch.float32, 128), (torch.bfloat16, 128),
+    # past one 128-column slab, and widths that are no multiple of 4 (the
+    # wrapper pads them with zero columns)
+    *((dt, w) for w in (4, 50, 132, 200, 256, 1, 6, 130)
+      for dt in (torch.float32, torch.bfloat16) if (dt, w) != (torch.float32, 4)),
 ])
 def test_each_layouts_kernel_matches_plain_on_card(card, bundle, layout, dtype, d):
     g = bundle.graph
@@ -262,6 +262,7 @@ def test_each_layouts_kernel_matches_plain_on_card(card, bundle, layout, dtype, 
     before = block_spmm.tile_matvec.launches
     out = block_spmm.tile_matvec(e, tiles)
     assert block_spmm.tile_matvec.launches == before + 1
+    assert out.shape == (part.n_row_blocks * 128, d) and out.is_contiguous()
     ref = block_spmm._tile_matvec_reference(e, tiles)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
@@ -304,9 +305,9 @@ def test_each_layouts_wrapper_refuses_what_its_kernel_cannot_take(card, bundle, 
     part = partition_tiles(bundle.graph, min_fill=16, tiles_per_step=8)
     tiles = block_spmm.to_device_tiles(part, device=card, layout=layout)
     n = bundle.graph.num_nodes
-    for d in (6, 132, 2):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            block_spmm.tile_matvec(torch.zeros((n, d), device=card), tiles)
+    # every width d >= 1 is taken (test_each_layouts_kernel_matches_plain_on_card)
+    with pytest.raises(ValueError, match="d >= 1"):
+        block_spmm.tile_matvec(torch.zeros((n, 0), device=card), tiles)
     with pytest.raises(ValueError, match="aligned"):
         block_spmm.tile_matvec(torch.zeros((n * 8 + 1,), device=card)[1:].view(n, 8), tiles)
     cpu_tiles = block_spmm.to_device_tiles(part, device="cpu", layout=layout)

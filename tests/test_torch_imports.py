@@ -33,7 +33,7 @@ def test_port_lists_its_modules():
               "models.lightgcn_fusion", "tools", "tools.exp_block_tiles", "tools.exp_tile_variants",
               "data.synthetic", "graph.build", "server", "data.prepare", "utils.profiling",
               "tools.exp_quant_call", "tools.exp_daemon_backlog", "data.native_ext",
-              "tools.exp_gather_knee", "ops", "graph", "data"):
+              "tools.exp_gather_knee", "tools.exp_scale", "ops", "graph", "data"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -108,7 +108,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
         to_device_graph,
         to_device_graph_auto,
     )
-    from gcn_recommendation_tpu_torch.tools import exp_block_tiles
+    from gcn_recommendation_tpu_torch.tools import exp_block_tiles, exp_scale
     from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches
     from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
 
@@ -133,6 +133,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
         lambda: exp_block_tiles.device_tiles(exp_block_tiles.make_layout(0, 2, 4, 1, 1)),
         lambda: exp_block_tiles.run_case(exp_block_tiles.make_layout(0, 2, 4, 1, 1), 1,
                                          torch.float32),
+        lambda: exp_scale.main(["--num_users", "40", "--num_items", "30", "--num_brands", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -158,7 +159,8 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
                 "tools/exp_quant_call.py", "core/mesh.py", "core/distributed.py",
                 "parallel/__init__.py", "parallel/spmd.py", "parallel/halo.py",
                 "parallel/collectives.py", "parallel/drivers.py", "data/native_ext.py",
-                "tools/exp_gather_knee.py", "ops/spmm.py", "graph/build.py"):
+                "tools/exp_gather_knee.py", "ops/spmm.py", "graph/build.py",
+                "tools/exp_scale.py", "ops/block_spmm.py"):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
