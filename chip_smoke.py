@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: serving, training (both model
 families), the tile experiment, row padding, the HTTP serving daemon, the
-mesh, the propagation layouts and the scaled configuration.
+mesh, the propagation layouts, the scaled configuration and the CLI on an
+on-disk dataset.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,27 @@ fails:
    1024 users (K2 once stochastic, once nearest a request, counted from 0):
    ETL seconds, ms per step, peak GiB, validation seconds and users/s,
    request ms; measurement only, one evaluation batch in its pieces and a
-   ``torch.profiler`` window of two steps.
+   ``torch.profiler`` window of two steps;
+14. the CLI on an on-disk dataset (``cli_dataset:`` line), through
+   ``cli.main`` in this process so the launch counters see the kernels:
+   ``prepare --recipe synthetic`` at the books regime of
+   ``tools/run_regime_grids.py`` (10,000 users, 5,000 items, 278,034 train
+   rows, written by ``data/parquet.py``), whose files ``read_columns``
+   must give back as the generator's arrays, exactly; ``train`` 2 epochs
+   (Val Recall@20 in (0, 1]) and ``test``; ``recommend --int8`` for 4 users
+   (K2 once stochastic on load and once nearest for the request, counted
+   from 0), each quantizer call of the command held bit-equal to its plain
+   version on the inputs the command gave it (the trained catalog, the
+   request rows), both as the command's own output and relaunched;
+   ``train --tile_spmm`` 1 epoch (K3 6 a step plus 3 for the validation,
+   counted from 0), with the first call on each tile partition of the
+   command (the regime's own partition, forward and backward) held against
+   plain on its inputs within the limits of phase 5, both as the command's
+   own output and relaunched; ``tools/run_experiments.py`` for
+   ``base_20e16c_brd``, whose best R@20 must lie within the band
+   (``tools/regime_comparison.py::band_of`` of the committed grids) of the
+   JAX grid's best over epochs <= 20 in
+   ``exp_synth/results/base_150e16c_brd/``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -174,9 +195,15 @@ no CUDA card is present.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
+import glob
+import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -184,13 +211,14 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import torch
 
 from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.config import Config
-from gcn_recommendation_tpu_torch.data import native_ext
+from gcn_recommendation_tpu_torch.data import native_ext, parquet, synthetic
 from gcn_recommendation_tpu_torch.data.sampler import (
     epoch_batches,
     membership_arrays,
@@ -209,7 +237,13 @@ from gcn_recommendation_tpu_torch.ops.spmm import (
 )
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.server import RecommendServer
-from gcn_recommendation_tpu_torch.tools import exp_block_tiles, exp_gather_knee
+from gcn_recommendation_tpu_torch.tools import (
+    exp_block_tiles,
+    exp_gather_knee,
+    regime_comparison,
+    run_experiments,
+    run_regime_grids,
+)
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 
@@ -261,6 +295,8 @@ SCALE_DIM, SCALE_LAYERS = 256, 4            # BASELINE.json configs[4], the scal
 SCALE_WIDTHS = (4, 50, 132, 200, 256)       # K3 against plain at each, both layouts and dtypes
 SCALE_NORTH_STAR_STEPS = 3
 SCALE_PARAMS_ATOL = 1e-5                    # tile vs ELL tables after the 20 steps at d = 256
+CLI_GRID_EPOCHS = 20                        # phase 14's run of the grid runner
+REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = {
     "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
     "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
@@ -646,12 +682,14 @@ def _tile_csr(part, n: int, dev):
     return coo.coalesce().to(dev).to_sparse_csr()
 
 
-def _check_tiles(tiles, emb, what: str, scaled: bool = False) -> float:
+def _check_tiles(tiles, emb, what: str, scaled: bool = False, k=None) -> float:
     """One kernel against the plain version of its layout on ``tiles``;
     returns the max abs diff.  f32 tiles are held to 1e-5 absolute unless
     ``scaled`` (sums that pass 1: the experiment's limit), bf16 tiles to
-    1e-5 * max(1, max|plain|)."""
-    k = block_spmm.tile_matvec(emb, tiles)
+    1e-5 * max(1, max|plain|).  ``k``: a kernel output already in hand
+    (else the kernel is launched here)."""
+    if k is None:
+        k = block_spmm.tile_matvec(emb, tiles)
     p = block_spmm._tile_matvec_reference(emb, tiles)
     torch.cuda.synchronize()
     err = (k - p).abs().max().item()
@@ -2531,6 +2569,209 @@ def phase_scale(dev, bundle):
     return tile_rec, quant_launches
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy (the CLI's lines are
+    both shown and read)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        return self.buf.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(argv):
+    """``cli.main(argv)`` in this process; returns what it printed."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {' '.join(argv[:1] + argv[1:3])} ... returned 0")
+    return tee.buf.getvalue()
+
+
+def _ex_per_s(text: str) -> float:
+    """The last epoch line's examples a second."""
+    return float(re.findall(r"\(([\d,]+) ex/s\)", text)[-1].replace(",", ""))
+
+
+def _recording(module, name: str, keep):
+    """Patch ``module.name`` to run as before and hand each call's
+    arguments and result to ``keep(args, result)``."""
+    orig = getattr(module, name)
+
+    def recorded(*args, **kw):
+        result = orig(*args, **kw)
+        keep(args, result)
+        return result
+
+    return mock.patch.object(module, name, recorded)
+
+
+def _check_cli_quantizer(calls):
+    """Each quantizer launch of a CLI command, bit-equal to the plain
+    version of its mode on the inputs the command gave it: the command's
+    own output, and the wrapper called again on those inputs.  Returns the
+    shapes, by mode."""
+    shapes = {}
+    for c in calls:
+        x, mode = c["x"], c["mode"]
+        if mode == "quantize_rows_int8":
+            plain = quant._quantize_rows_int8_reference(x, c["seed"], c["row_offset"])
+            again = quant.quantize_rows_int8(x, seed=c["seed"], row_offset=c["row_offset"])
+        else:
+            plain = quant._quantize_users_int8_reference(x)
+            again = quant.quantize_users_int8(x)
+        torch.cuda.synchronize()
+        for what, (q, s) in (("the command's output", c["out"]), ("relaunched", again)):
+            check(torch.equal(q, plain[0]) and torch.equal(s, plain[1]),
+                  f"recommend --int8: {mode} ({what}) bit-equal to plain at "
+                  f"{list(x.shape)}")
+        shapes.setdefault(mode, []).append(list(x.shape))
+    return shapes
+
+
+def phase_cli_dataset():
+    """Phase 14: the CLI on an on-disk dataset, in this process, so the
+    launch counters see the kernels.  Returns K2's and K3's launches on
+    their CLI paths, each counted from 0 around its command."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    spec = run_regime_grids.REGIMES["books"]
+
+    written = {}
+
+    def recording_write(path, columns):  # the generator's arrays, as handed to the writer
+        written[os.path.basename(path)] = {k: np.array(v) for k, v in columns.items()}
+        parquet.write_columns(path, columns)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(synthetic, "write_columns", recording_write):
+        _cli(["prepare", "--recipe", "synthetic", "--num_users", str(spec["num_users"]),
+              "--num_items", str(spec["num_items"]), "--num_brands", str(spec["num_brands"]),
+              "--mean_degree", str(spec["mean_degree"]), "--latent_dim", str(spec["latent_dim"]),
+              "--temperature", str(spec["temperature"]), "--pop_scale", str(spec["pop_scale"]),
+              "--core", "16", "--embedding_dim", "64", "--style", "latent",
+              "--emb_noise", str(run_regime_grids.EMB_NOISE["books"]),
+              "--brand_style", run_regime_grids.BRAND_STYLE, "--output_dir", data])
+    prepare_s = time.perf_counter() - t0
+    check(sorted(written) == ["item_brand.parquet", "test.parquet", "train.parquet"],
+          "prepare --recipe synthetic wrote the three parquet files through data/parquet.py")
+    for name, cols in written.items():
+        back = parquet.read_columns(os.path.join(data, name))
+        check(list(back) == list(cols) and all(
+            back[c].dtype == cols[c].dtype and np.array_equal(back[c], cols[c]) for c in cols),
+            f"read_columns gives back the generator's arrays of {name} exactly "
+            f"({len(next(iter(cols.values()))):,} rows)")
+
+    common = ["--processed_dir", data, "--output_root", out]
+    t0 = time.perf_counter()
+    text = _cli(["train", *common, "--epochs", "2", "--val_interval", "1"])
+    train_s = time.perf_counter() - t0
+    ms_step = 2048 / _ex_per_s(text) * 1e3
+    val = [float(x) for x in re.findall(r"Val Recall@20: ([\d.]+)", text)]
+    check(len(val) == 2 and all(0 < v <= 1 for v in val),
+          f"train 2 epochs on the on-disk dataset: Val Recall@20 {val}")
+    text = _cli(["test", *common])
+    test_recall = float(re.search(r"Recall@20: ([\d.]+)", text).group(1))
+    check(0 < test_recall <= 1, f"test on the on-disk dataset: Recall@20 {test_recall}")
+
+    users = [3, 7, 11, 19]
+    k2_calls = []
+
+    def keep_k2(args, result):  # (wrapper, x, mode, seed, out[, row_offset])
+        k2_calls.append(dict(mode=args[0].__name__, x=args[1].clone(), seed=args[3],
+                             row_offset=args[5] if len(args) > 5 else 0,
+                             out=(result[0].clone(), result[1].clone())))
+
+    quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
+    with _recording(quant, "_launch_quantizer", keep_k2):
+        text = _cli(["recommend", *common, "--int8", "--k", str(K),
+                     "--users", ",".join(map(str, users))])
+    k2 = {"stochastic": quant.quantize_rows_int8.launches,
+          "nearest": quant.quantize_users_int8.launches}
+    lines = re.findall(r"^user (\d+): (.*)$", text, re.M)
+    check([int(u) for u, _ in lines] == users and all(len(p.split()) == K for _, p in lines),
+          f"recommend --int8 answers {len(users)} users with {K} items each")
+    check(k2 == {"stochastic": 1, "nearest": 1},
+          f"recommend --int8: K2 launched once on load and once for the request ({k2})")
+    k2_shapes = _check_cli_quantizer(k2_calls)
+
+    # (id(tiles), pass) -> the first call on those tiles in that pass: the
+    # training forward takes an input that requires grad, the backward a
+    # cotangent that does not
+    k3_calls = {}
+
+    def keep_k3(args, result):  # (emb, tiles)
+        key = (id(args[1]), "forward" if args[0].requires_grad else "backward")
+        if key not in k3_calls:
+            k3_calls[key] = (args[1], args[0].detach().clone(), result.detach().clone())
+
+    block_spmm.tile_matvec.launches = 0
+    with _recording(block_spmm, "_tile_matvec_cuda", keep_k3):
+        text = _cli(["train", "--processed_dir", data, "--output_root",
+                     os.path.join(tmp, "tile"), "--epochs", "1", "--val_interval", "1",
+                     "--tile_spmm"])
+    k3 = block_spmm.tile_matvec.launches
+    k3_checks = []
+    for (_, pass_), (tiles, emb, out_path) in k3_calls.items():
+        what = (f"the books regime's partition of train --tile_spmm, {pass_} "
+                f"({tiles.num_tiles} tiles, emb {list(emb.shape)})")
+        k3_checks.append({
+            "pass": pass_, "layout": tiles.layout, "dtype": str(tiles.values.dtype).replace("torch.", ""),
+            "tiles": tiles.num_tiles, "emb": list(emb.shape),
+            "max_abs_diff_command": _check_tiles(tiles, emb, what + ", the command's output",
+                                                 k=out_path),
+            "max_abs_diff_relaunched": _check_tiles(tiles, emb, what + ", relaunched")})
+    check({c["pass"] for c in k3_checks} == {"forward", "backward"},
+          "train --tile_spmm: K3's inputs of both passes recorded and held against plain")
+    del k3_calls
+    # one validation row per user leaves the train split
+    train_users = written["train.parquet"]["user_idx"]
+    steps = -(-(len(train_users) - len(np.unique(train_users))) // 2048)
+    check("CUDA tile partition" in text and k3 == 6 * steps + 3,
+          f"train --tile_spmm 1 epoch: K3 launched {k3}x = 6 a step x {steps} steps + 3 "
+          "for the validation forward")
+
+    # the grid runner, one code, 20 epochs, held against the JAX grid's run
+    t0 = time.perf_counter()
+    exp = os.path.join(tmp, "exp_torch_synth")
+    with contextlib.redirect_stdout(_Tee(sys.stdout)):
+        results = run_experiments.main(["--processed_dir", data, "--exp_name", exp,
+                                        "--epochs", str(CLI_GRID_EPOCHS), "--grids", "base",
+                                        "--only", "brd"])
+    grid_s = time.perf_counter() - t0
+    code = f"base_{CLI_GRID_EPOCHS}e16c_brd"
+    check([c for c, _ in results] == [code], f"run_experiments ran {code}")
+    port_run = regime_comparison.read_runs(exp)[0]
+    with open(glob.glob(os.path.join(REPO, "exp_synth", "results", "base_150e16c_brd",
+                                     "*_epoch_history.csv"))[0]) as f:
+        jax_rows = [r for r in csv.DictReader(f) if int(r["epoch"]) <= CLI_GRID_EPOCHS]
+    jax_best = max(float(r["recall"]) for r in jax_rows)
+    band = regime_comparison.band_of(
+        regime_comparison.read_runs(os.path.join(REPO, "exp_torch_synth")),
+        regime_comparison.read_runs(os.path.join(REPO, "exp_synth")))
+    check(abs(port_run["best_recall"] - jax_best) <= band,
+          f"{code}: best R@20 {port_run['best_recall']:.4f} (epoch {port_run['best_epoch']}) "
+          f"within {band:.4f} of the JAX grid's best over epochs <= {CLI_GRID_EPOCHS} "
+          f"({jax_best:.4f})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("cli_dataset: " + json.dumps({
+        "seconds": round(time.perf_counter() - t_phase, 1), "prepare_s": round(prepare_s, 2),
+        "train_2_epochs_s": round(train_s, 2), "ms_per_step": ms_step,
+        "val_recall": val, "test_recall": test_recall, "grid_code": code,
+        "grid_s": round(grid_s, 1), "grid_best_recall": port_run["best_recall"],
+        "grid_best_epoch": port_run["best_epoch"], "jax_best_recall": jax_best, "band": band,
+        "k2": k2, "k2_shapes_checked": k2_shapes, "k3": k3, "k3_checked": k3_checks}),
+        flush=True)
+    return {"quantize_rows_int8": k2["stochastic"], "quantize_users_int8": k2["nearest"],
+            "tile_matvec": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -2564,6 +2805,7 @@ def main() -> int:
     mesh_launches = phase_mesh(dev, bundle, train_ref["per_layer_losses"])
     layout_launches = phase_layouts(dev, bundle, train_ref)
     scale_tile_record, scale_quant_launches = phase_scale(dev, bundle)
+    cli_launches = phase_cli_dataset()
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -2581,6 +2823,10 @@ def main() -> int:
     tile_record["launches"] = train_launches["tile_matvec"]
     tile_record["launches_fusion_path"] = fusion_launches["tile_matvec"]
     tile_record.update(scale_tile_record)
+    quant_record["launches_cli_path"] = (cli_launches["quantize_rows_int8"]
+                                         + cli_launches["quantize_users_int8"])
+    quant_record["launches_cli_path_nearest"] = cli_launches["quantize_users_int8"]
+    tile_record["launches_cli_path"] = cli_launches["tile_matvec"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),

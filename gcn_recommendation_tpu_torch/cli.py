@@ -6,7 +6,7 @@ names, with the same output lines:
 
     python -m gcn_recommendation_tpu_torch prepare --recipe synthetic \
         --num_users 400 --num_items 300 --output_dir DIR   (or a dataset
-        recipe with --review_path / --meta_path; needs pandas, no device)
+        recipe with --review_path / --meta_path, which needs pandas; no device)
     python -m gcn_recommendation_tpu_torch train --processed_dir DIR \
         [--model_name LightGCN_Fusion [--fusion_id_init]] \
         [--epochs 150] [--batch_size 2048] [--resume] \
@@ -47,8 +47,9 @@ port's own (``utils/checkpoint.py``): ``train`` writes ``best.pt`` and
 and ``recommend`` read.  Params of the JAX package, as numpy arrays, are
 carried across with ``models/convert.py`` and saved with ``save_params``.
 ``LightGCN_Fusion`` reads its content matrix from the dataset's
-``item_embeddings.npy`` in every mode and fails without it.  Reading the
-parquet dataset needs pandas.
+``item_embeddings.npy`` in every mode and fails without it.  The parquet
+files are read and written by ``data/parquet.py`` (no pandas): only the
+dataset recipes of ``prepare`` that parse raw JSONL dumps need pandas.
 """
 
 from __future__ import annotations
@@ -176,7 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("prepare", help="Offline data preparation (ETL).")
     pr.add_argument("--recipe", type=str, required=True,
                     help="One of: amazon_books, amazon_books_emb, "
-                         "amazon_books_senti, amazon_sport_emb, steam_emb, synthetic")
+                         "amazon_books_senti, amazon_sport_emb, steam_emb, synthetic. "
+                         "The dataset recipes parse raw JSONL dumps and need pandas "
+                         "(host-only ETL); synthetic needs none.")
     pr.add_argument("--core", type=int, default=None, help="K-core threshold.")
     pr.add_argument("--review_path", type=str, default=None)
     pr.add_argument("--meta_path", type=str, default=None)

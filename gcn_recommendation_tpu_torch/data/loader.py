@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from gcn_recommendation_tpu_torch.data.parquet import read_columns
 from gcn_recommendation_tpu_torch.graph.build import Graph, build_normalized_adjacency
 
 
@@ -178,17 +179,15 @@ def load_preprocessed_data(
     pad_multiple: int = 1024,
 ) -> DataBundle:
     """Load processed parquet artifacts and build the normalized graph."""
-    import pandas as pd  # local import: the in-memory paths need no pandas
-
     stats_path = os.path.join(data_dir, "stats.json")
     if not os.path.exists(stats_path):
         raise FileNotFoundError(
             f"Stats file not found in '{data_dir}'. Please run data preparation first."
         )
 
-    all_train_df = pd.read_parquet(os.path.join(data_dir, "train.parquet"))
-    test_df = pd.read_parquet(os.path.join(data_dir, "test.parquet"))
-    item_brand_df = pd.read_parquet(os.path.join(data_dir, "item_brand.parquet"))
+    all_train = read_columns(os.path.join(data_dir, "train.parquet"))
+    test_cols = read_columns(os.path.join(data_dir, "test.parquet"))
+    item_brand_cols = read_columns(os.path.join(data_dir, "item_brand.parquet"))
 
     with open(stats_path) as f:
         base_stats = json.load(f)
@@ -196,27 +195,29 @@ def load_preprocessed_data(
     num_items = int(base_stats["num_items"])
     num_brands = int(base_stats["num_brands"])
 
+    tr_u = all_train["user_idx"].astype(np.int32)
+    tr_i = all_train["item_idx"].astype(np.int32)
+    te_u = test_cols["user_idx"].astype(np.int32)
+    te_i = test_cols["item_idx"].astype(np.int32)
     if debug:
-        # 1% user subsample, >=1 user (main.py:191-198)
+        # 1% user subsample, >=1 user (main.py:191-198); the users in order
+        # of first appearance, as pandas' Series.unique gives them
         rng = rng or np.random.default_rng(42)
-        unique_users = all_train_df["user_idx"].unique()
+        uniq, first = np.unique(tr_u, return_index=True)
+        unique_users = uniq[np.argsort(first, kind="stable")]
         sample_size = max(1, int(len(unique_users) * 0.01))
         sample_users = rng.choice(unique_users, size=sample_size, replace=False)
-        keep = set(sample_users.tolist())
-        all_train_df = all_train_df[all_train_df["user_idx"].isin(keep)]
-        test_df = test_df[test_df["user_idx"].isin(keep)]
+        keep_tr, keep_te = np.isin(tr_u, sample_users), np.isin(te_u, sample_users)
+        tr_u, tr_i = tr_u[keep_tr], tr_i[keep_tr]
+        te_u, te_i = te_u[keep_te], te_i[keep_te]
         if verbose:
             print("\n[Debug Mode] Using 1.0% of the original data")
 
-    tr_u = all_train_df["user_idx"].to_numpy(np.int32)
-    tr_i = all_train_df["item_idx"].to_numpy(np.int32)
     train, val = _first_row_per_user_split(tr_u, tr_i)
-    test = Interactions(
-        test_df["user_idx"].to_numpy(np.int32), test_df["item_idx"].to_numpy(np.int32)
-    )
+    test = Interactions(te_u, te_i)
     item_brand = ItemBrand(
-        item_brand_df["item_idx"].to_numpy(np.int32),
-        item_brand_df["brand_idx"].to_numpy(np.int32),
+        item_brand_cols["item_idx"].astype(np.int32),
+        item_brand_cols["brand_idx"].astype(np.int32),
     )
 
     graph_stats = compute_graph_stats(

@@ -41,23 +41,28 @@ _load_failed = False
 _load_lock = threading.Lock()
 
 
-def library_path(build_dir: str = BUILD_DIR) -> str:
+def _stem(source: str) -> str:
+    return "lib" + os.path.splitext(os.path.basename(source))[0]
+
+
+def library_path(build_dir: str = BUILD_DIR, source: str = SOURCE) -> str:
     """Where the library of the current source and flags is built."""
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join([CXX, *CXX_FLAGS]).encode()).hexdigest()
-    return os.path.join(build_dir, f"libgcnrec-{digest[:16]}.so")
+    return os.path.join(build_dir, f"{_stem(source)}-{digest[:16]}.so")
 
 
-def build_library(build_dir: str = BUILD_DIR) -> str:
-    """Compile ``native/gcnrec.cpp`` into ``build_dir`` unless it is built
-    already; returns the library's path.  Safe to call from several
-    processes at once.  Raises ``RuntimeError`` with the compiler's output
-    when the build fails."""
-    out = library_path(build_dir)
+def build_library(build_dir: str = BUILD_DIR, source: str = SOURCE) -> str:
+    """Compile ``source`` (``native/gcnrec.cpp`` by default; the parquet
+    decoder passes its own) into ``build_dir`` unless it is built already;
+    returns the library's path.  Safe to call from several processes at
+    once.  Raises ``RuntimeError`` with the compiler's output when the
+    build fails."""
+    out = library_path(build_dir, source)
     if os.path.exists(out):
         return out
     os.makedirs(build_dir, exist_ok=True)
-    with open(os.path.join(build_dir, "libgcnrec.lock"), "w") as lock:
+    with open(os.path.join(build_dir, f"{_stem(source)}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.exists(out):  # another process built it while we waited
@@ -65,11 +70,11 @@ def build_library(build_dir: str = BUILD_DIR) -> str:
             tmp = f"{out}.{os.getpid()}.tmp"
             try:
                 res = subprocess.run(
-                    [CXX, *CXX_FLAGS, "-o", tmp, SOURCE],
+                    [CXX, *CXX_FLAGS, "-o", tmp, source],
                     capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
                 )
                 if res.returncode != 0:
-                    raise RuntimeError(f"{CXX} failed for {SOURCE}:\n{res.stderr}")
+                    raise RuntimeError(f"{CXX} failed for {source}:\n{res.stderr}")
                 os.replace(tmp, out)
             finally:
                 if os.path.exists(tmp):

@@ -29,7 +29,10 @@ Recipe parity (each bullet cites the reference script it reproduces):
 
 The port's own copy of ``gcn_recommendation_tpu/data/prepare.py`` (numpy
 and pandas, no device code), held against it file for file by
-``tests/test_torch_prepare.py``.  The K-core filter runs in the native
+``tests/test_torch_prepare.py``.  These dataset recipes parse JSONL dumps
+that are not in the repository and need pandas (host-only ETL); the
+parquet files are written by the port's ``data/parquet.py``, so the
+``synthetic`` recipe (``data/synthetic.py``) and every reader need none.  The K-core filter runs in the native
 C++ library (``data/native_ext.py``) when it loads and in numpy
 otherwise, as in the JAX package; both give the same mask.
 """
@@ -42,6 +45,8 @@ import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from gcn_recommendation_tpu_torch.data.parquet import write_columns
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +361,11 @@ def prepare_and_save_data(
         output_base_dir, f"processed_data_{core}{recipe.out_suffix}"
     )
     os.makedirs(out_dir, exist_ok=True)
-    train_df[["user_idx", "item_idx"]].to_parquet(
-        os.path.join(out_dir, "train.parquet"), index=False
-    )
-    test_df[["user_idx", "item_idx"]].to_parquet(
-        os.path.join(out_dir, "test.parquet"), index=False
-    )
-    pd.DataFrame({"item_idx": ib_item_idx, "brand_idx": ib_brand_idx}).to_parquet(
-        os.path.join(out_dir, "item_brand.parquet"), index=False
-    )
+    for name, frame in (("train", train_df), ("test", test_df)):
+        write_columns(os.path.join(out_dir, f"{name}.parquet"),
+                      {c: frame[c].to_numpy() for c in ("user_idx", "item_idx")})
+    write_columns(os.path.join(out_dir, "item_brand.parquet"),
+                  {"item_idx": ib_item_idx, "brand_idx": ib_brand_idx})
     if meta_embeddings:
         # embd_dim = the MODAL length over all parseable finite vectors —
         # never the first record's, which on a dirty dump can be a scalar

@@ -6,8 +6,9 @@ the same order, so both packages build the same arrays bit for bit.
 
 Writes the artifact layout of the reference's prepare_data.py recipes
 (``train.parquet`` / ``test.parquet`` / ``item_brand.parquet`` /
-``stats.json`` [+ ``item_embeddings.npy``]) or builds a ``DataBundle`` in
-memory.  Two styles: ``popularity`` (Zipf-ish item popularity, lognormal
+``stats.json`` [+ ``item_embeddings.npy``]; the parquet files through the
+port's own writer, ``data/parquet.py``, with no pandas) or builds a
+``DataBundle`` in memory.  Two styles: ``popularity`` (Zipf-ish item popularity, lognormal
 user activity floored at ``core``) and ``latent`` (a latent-factor taste
 model with collaborative structure a model can learn, from which
 content embeddings and brands correlated with taste are derived: the
@@ -22,6 +23,8 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+from gcn_recommendation_tpu_torch.data.parquet import write_columns
 
 
 def generate_interactions_latent(
@@ -357,8 +360,6 @@ def generate_synthetic_dataset(
     ``pop_df`` / ``deg_sigma``: tail knobs, see
     generate_interactions_latent.
     """
-    import pandas as pd
-
     rng = np.random.default_rng(seed)
     lv = None
     if style == "latent":
@@ -415,15 +416,12 @@ def generate_synthetic_dataset(
     ib_brand = np.concatenate([brand1, brand2[has2]])
 
     os.makedirs(out_dir, exist_ok=True)
-    pd.DataFrame({"user_idx": train_u, "item_idx": train_i}).to_parquet(
-        os.path.join(out_dir, "train.parquet"), index=False
-    )
-    pd.DataFrame({"user_idx": test_u, "item_idx": test_i}).to_parquet(
-        os.path.join(out_dir, "test.parquet"), index=False
-    )
-    pd.DataFrame(
-        {"item_idx": ib_item.astype(np.int32), "brand_idx": ib_brand.astype(np.int32)}
-    ).to_parquet(os.path.join(out_dir, "item_brand.parquet"), index=False)
+    write_columns(os.path.join(out_dir, "train.parquet"),
+                  {"user_idx": train_u, "item_idx": train_i})
+    write_columns(os.path.join(out_dir, "test.parquet"),
+                  {"user_idx": test_u, "item_idx": test_i})
+    write_columns(os.path.join(out_dir, "item_brand.parquet"),
+                  {"item_idx": ib_item.astype(np.int32), "brand_idx": ib_brand.astype(np.int32)})
     with open(os.path.join(out_dir, "stats.json"), "w") as f:
         json.dump(
             {

@@ -33,7 +33,9 @@ def test_port_lists_its_modules():
               "models.lightgcn_fusion", "tools", "tools.exp_block_tiles", "tools.exp_tile_variants",
               "data.synthetic", "graph.build", "server", "data.prepare", "utils.profiling",
               "tools.exp_quant_call", "tools.exp_daemon_backlog", "data.native_ext",
-              "tools.exp_gather_knee", "tools.exp_scale", "ops", "graph", "data"):
+              "tools.exp_gather_knee", "tools.exp_scale", "ops", "graph", "data",
+              "data.parquet", "tools.run_experiments", "tools.run_regime_grids",
+              "tools.regime_comparison", "tools.exp_parquet_read"):
         assert f"{PKG}.{m}" in mods
 
 
@@ -108,11 +110,14 @@ def test_entry_points_raise_without_cuda(tmp_path):
         to_device_graph,
         to_device_graph_auto,
     )
-    from gcn_recommendation_tpu_torch.tools import exp_block_tiles, exp_scale
+    from gcn_recommendation_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from gcn_recommendation_tpu_torch.tools import exp_block_tiles, exp_scale, run_experiments
     from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches
     from gcn_recommendation_tpu_torch.utils.checkpoint import load_params
 
     b = synthetic_bundle(40, 30, 4, seed=0)
+    data = generate_synthetic_dataset(str(tmp_path / "data"), num_users=40, num_items=30,
+                                      num_brands=4, seed=0)
     calls = [
         lambda: get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, Config()),
         lambda: to_device_graph_auto(b.graph),
@@ -134,6 +139,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         lambda: exp_block_tiles.run_case(exp_block_tiles.make_layout(0, 2, 4, 1, 1), 1,
                                          torch.float32),
         lambda: exp_scale.main(["--num_users", "40", "--num_items", "30", "--num_brands", "4"]),
+        lambda: run_experiments.main(["--processed_dir", data, "--epochs", "1", "--only", "brd",
+                                      "--exp_name", str(tmp_path / "exp")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -160,11 +167,31 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
                 "parallel/__init__.py", "parallel/spmd.py", "parallel/halo.py",
                 "parallel/collectives.py", "parallel/drivers.py", "data/native_ext.py",
                 "tools/exp_gather_knee.py", "ops/spmm.py", "graph/build.py",
-                "tools/exp_scale.py", "ops/block_spmm.py"):
+                "tools/exp_scale.py", "ops/block_spmm.py", "data/parquet.py",
+                "data/loader.py", "data/synthetic.py", "tools/run_experiments.py",
+                "tools/run_regime_grids.py", "tools/regime_comparison.py",
+                "tools/exp_parquet_read.py"):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
                              re.M), rel
+
+
+def test_port_and_chip_smoke_import_no_pandas_or_root_tools():
+    """Neither the port nor ``chip_smoke.py`` loads pandas, pyarrow or the
+    repository's root ``tools/`` (the JAX package's tools) when imported."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('pandas', 'pyarrow', 'tools'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_prepare_needs_no_device():
