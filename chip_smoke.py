@@ -186,7 +186,24 @@ fails:
    ``base_20e16c_brd``, whose best R@20 must lie within the band
    (``tools/regime_comparison.py::band_of`` of the committed grids) of the
    JAX grid's best over epochs <= 20 in
-   ``exp_synth/results/base_150e16c_brd/``.
+   ``exp_synth/results/base_150e16c_brd/``;
+15. the measurement and drill tools of ``gcn_recommendation_tpu_torch/tools``
+   (``tools:`` line), each through its ``main(argv)`` in this process:
+   ``card_checks`` at its full size (K2 3 stochastic + 124 nearest launches,
+   counted from 0) and ``exp_serve`` at 5,000 users x 2,000 items with
+   3 requests (K2 once at the int8 load and once a request), every quantizer
+   call of each bit-equal to its plain version on the inputs the tool gave
+   it; ``exp_tile_spmm`` at min_fill 64 on a 10,000-user heavy-tailed graph
+   (K3 50 launches, counted from 0; the first call of each pass and tile
+   dtype held against plain within the limits of phase 5, as the tool's
+   output and relaunched; f32 tiles within 1e-5 of plain ELL);
+   ``exp_topk_mask`` at F = 8, ``exp_hub_threshold`` at 256 and 128,
+   ``exp_min_width`` at width 8 with NB = 400,000, ``exp_step_profile``
+   with 3-step chains, ``calibrate_regimes`` 2 epochs of the books regime
+   (best R@20 under the oracle), ``multiproc_dryrun`` as a world of one
+   over NCCL (``PASSED``) and ``real_data_dryrun`` on an
+   ``amazon_books_emb`` dump drawn from a seed (exit 0; a missing input
+   exits 2).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -246,6 +263,7 @@ from gcn_recommendation_tpu_torch.tools import (
 )
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
+from gcn_recommendation_tpu_torch.utils.timing import card_line, cuda_ms, graph_ms, host_ms
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -301,55 +319,6 @@ KERNEL_SOURCE = {
     "compressed": "gcn_recommendation_tpu_torch/csrc/tile_gather_spmm.cu",
     "dense": "gcn_recommendation_tpu_torch/csrc/tile_spmm.cu",
 }
-
-
-def _cuda_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
-    """CUDA-event time of one ``fn()`` in ms: the median over ``windows``
-    of (``reps`` back-to-back calls) / ``reps``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def _device_ms(fn, reps: int = 20) -> float:
-    """Time of one ``fn()`` on the card in ms, without the host's share:
-    ``reps`` calls captured into one CUDA graph, the graph replayed and
-    timed with ``_cuda_ms``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture: builds, lazy initialisation
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    return _cuda_ms(graph.replay, reps=5) / reps
-
-
-def _host_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median host-clock time of ``fn()`` in ms; ``fn`` ends in a copy to
-    the host, which waits for the device."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def check(cond: bool, what: str) -> None:
@@ -428,27 +397,27 @@ def phase_kernel_check(dev):
                 "max_abs_err": err,
                 "max_abs_diff_vs_plain": err,
                 # on the card (CUDA graph replay), into the caller's buffers
-                "ms": _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                "ms": graph_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
                 # one eager call in a loop: host-bound when short
-                "call_ms": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
-                "call_ms_out": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
-                "plain_ms": _cuda_ms(
+                "call_ms": cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
+                "call_ms_out": cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                "plain_ms": cuda_ms(
                     lambda: quant._quantize_rows_int8_reference(x, seed=seed)),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "v1_ms": _device_ms(lambda: _quant_v1(x, seed, out)),
-                "floor_ms": _device_ms(lambda: lib.quant_int8_empty_launch(
+                "v1_ms": graph_ms(lambda: _quant_v1(x, seed, out)),
+                "floor_ms": graph_ms(lambda: lib.quant_int8_empty_launch(
                     blocks, 256, torch.cuda.current_stream().cuda_stream)),
                 "floor_grid": [blocks, 256],
             })
         elif (n, d) == (2_000_000, 64):  # where the bytes decide, not the floor
-            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
+            ms = graph_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
             record.update({
                 "shape_large": [n, d],
                 "ms_large": ms,
-                "call_ms_large": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
-                "v1_ms_large": _device_ms(lambda: _quant_v1(x, seed, out)),
-                "nearest_ms_large": _device_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                "call_ms_large": cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out)),
+                "v1_ms_large": graph_ms(lambda: _quant_v1(x, seed, out)),
+                "nearest_ms_large": graph_ms(lambda: quant.quantize_users_int8(x, out=out)),
                 "bound_ms_large": bound_ms,
                 # the nearest mode moves the same bytes with fewer operations
                 "nearest_bound_ms_large": bound_ms,
@@ -456,16 +425,16 @@ def phase_kernel_check(dev):
                 "share_of_bound_large": bound_ms / ms,
             })
         elif (n, d) == (200_000, 256):  # the north-star catalog of phase 13
-            ms = _device_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
+            ms = graph_ms(lambda: quant.quantize_rows_int8(x, seed=seed, out=out))
             record.update({
                 "shape_catalog_d256": [n, d],
                 "ms_catalog_d256": ms,
-                "call_ms_catalog_d256": _cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
-                "nearest_ms_catalog_d256": _device_ms(
+                "call_ms_catalog_d256": cuda_ms(lambda: quant.quantize_rows_int8(x, seed=seed)),
+                "nearest_ms_catalog_d256": graph_ms(
                     lambda: quant.quantize_users_int8(x, out=out)),
-                "plain_ms_catalog_d256": _cuda_ms(
+                "plain_ms_catalog_d256": cuda_ms(
                     lambda: quant._quantize_rows_int8_reference(x, seed=seed), reps=5),
-                "nearest_plain_ms_catalog_d256": _cuda_ms(
+                "nearest_plain_ms_catalog_d256": cuda_ms(
                     lambda: quant._quantize_users_int8_reference(x), reps=5),
                 "bound_ms_catalog_d256": bound_ms,
                 "bound_by_catalog_d256": bound_by,
@@ -474,12 +443,12 @@ def phase_kernel_check(dev):
         elif (n, d) == (1_024, 64):  # the largest request, nearest mode
             record.update({
                 "shape_nearest": [n, d],
-                "nearest_ms": _device_ms(lambda: quant.quantize_users_int8(x, out=out)),
-                "nearest_call_ms": _cuda_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                "nearest_ms": graph_ms(lambda: quant.quantize_users_int8(x, out=out)),
+                "nearest_call_ms": cuda_ms(lambda: quant.quantize_users_int8(x, out=out)),
                 # the eager PyTorch launches that the nearest mode replaces
-                "nearest_plain_ms": _cuda_ms(lambda: quant._quantize_users_int8_reference(x)),
+                "nearest_plain_ms": cuda_ms(lambda: quant._quantize_users_int8_reference(x)),
                 "nearest_bound_ms": bound_ms,
-                "v1_ms_request_shape": _device_ms(lambda: _quant_v1(x, seed, out)),
+                "v1_ms_request_shape": graph_ms(lambda: _quant_v1(x, seed, out)),
             })
         del x, out
     print("quantizer: " + json.dumps(record), flush=True)
@@ -538,7 +507,7 @@ def _user_quantizer_ab(rq, requests):
             for name, fn in (("kernel", kernel), ("eager", eager), ("eager", eager),
                              ("kernel", kernel)):
                 quant.quantize_users_int8 = fn
-                times[name].append(_host_ms(lambda: rq.recommend(u, k=K), reps=30))
+                times[name].append(host_ms(lambda: rq.recommend(u, k=K), reps=30))
             for name, t in times.items():
                 out[f"int8_b{len(u)}_{name}_user_quantizer_ms"] = statistics.fmean(t)
     finally:
@@ -618,15 +587,15 @@ def phase_path(dev, bundle, bundle_s):
         diff = (ell - coo).abs().max().item()
         check(diff <= PROPAGATION_ATOL,
               f"ELL propagation matches propagate_coo (max abs diff {diff:.3g})")
-        propagate_ms = _cuda_ms(lambda: model(graph), reps=5, warmup=2)
-        coo_ms = _cuda_ms(lambda: model(graph, path="coo"), reps=5, warmup=2)
+        propagate_ms = cuda_ms(lambda: model(graph), reps=5, warmup=2)
+        coo_ms = cuda_ms(lambda: model(graph, path="coo"), reps=5, warmup=2)
 
     latency = {}
     for name, r in (("f32", rf), ("int8", rq)):
         for u in requests:
-            latency[f"{name}_b{len(u)}_ms"] = _host_ms(lambda: r.recommend(u, k=K))
-        latency[f"{name}_many_ms"] = _host_ms(lambda: r.recommend_many(requests, k=K))
-        latency[f"{name}_pipelined_ms"] = _host_ms(
+            latency[f"{name}_b{len(u)}_ms"] = host_ms(lambda: r.recommend(u, k=K))
+        latency[f"{name}_many_ms"] = host_ms(lambda: r.recommend_many(requests, k=K))
+        latency[f"{name}_pipelined_ms"] = host_ms(
             lambda: r.recommend_pipelined(requests, k=K))
     latency.update(_user_quantizer_ab(rq, requests))
     meas = {
@@ -809,8 +778,8 @@ def phase_tile_kernel_check(dev, bundle):
 
     def times(layout, dtype):
         t = checked[(layout, dtype)][0]
-        return (_device_ms(lambda: block_spmm.tile_matvec(emb, t)),
-                _cuda_ms(lambda: block_spmm.tile_matvec(emb, t)))
+        return (graph_ms(lambda: block_spmm.tile_matvec(emb, t)),
+                cuda_ms(lambda: block_spmm.tile_matvec(emb, t)))
 
     main = checked[("compressed", torch.float32)]
     ms, call_ms = times("compressed", torch.float32)
@@ -818,10 +787,10 @@ def phase_tile_kernel_check(dev, bundle):
     dense_ms, dense_call_ms = times("dense", torch.float32)
     dense_bf16_ms, _ = times("dense", torch.bfloat16)
     dense_tiles = checked[("dense", torch.float32)][0]
-    plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, main[0]))
-    dense_plain_ms = _cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, dense_tiles))
-    library_ms = _device_ms(lambda: torch.sparse.mm(csr, emb))
-    library_call_ms = _cuda_ms(lambda: torch.sparse.mm(csr, emb))
+    plain_ms = cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, main[0]))
+    dense_plain_ms = cuda_ms(lambda: block_spmm._tile_matvec_reference(emb, dense_tiles))
+    library_ms = graph_ms(lambda: torch.sparse.mm(csr, emb))
+    library_call_ms = cuda_ms(lambda: torch.sparse.mm(csr, emb))
     bound_ms, bound_by, dense_products_ms = _tile_bound_ms(main[0], n, d)
     dense_bound_ms, dense_bound_by, _ = _tile_bound_ms(dense_tiles, n, d)
     bf16_bound_ms, _, _ = _tile_bound_ms(checked[("compressed", torch.bfloat16)][0], n, d)
@@ -1071,7 +1040,7 @@ def phase_train(dev, bundle):
         fu, fi, fb, _, _ = t.model(t.graph)
         (fu.sum() + fi.sum() + fb.sum()).backward()
 
-    prop_ms = {tile: _cuda_ms(lambda t=trainers[tile]: fwd_bwd(t), reps=5, warmup=2)
+    prop_ms = {tile: cuda_ms(lambda t=trainers[tile]: fwd_bwd(t), reps=5, warmup=2)
                for tile in (True, False)}
     meas = {
         "steps": TRAIN_STEPS,
@@ -1228,10 +1197,10 @@ def phase_exp_tiles(dev):
     check(abs(sums[0] - sums[1]) <= 1e-3 * max(1.0, abs(sums[0])),
           f"exp_tiles: both chains end in the same sum ({sums[0]:.6g}, {sums[1]:.6g})")
 
-    ms = {name: _device_ms(lambda t=t: block_spmm.tile_matvec(e, t)) for name, t in tiles.items()}
-    call_ms = {name: _cuda_ms(lambda t=t: block_spmm.tile_matvec(e, t))
+    ms = {name: graph_ms(lambda t=t: block_spmm.tile_matvec(e, t)) for name, t in tiles.items()}
+    call_ms = {name: cuda_ms(lambda t=t: block_spmm.tile_matvec(e, t))
                for name, t in tiles.items()}
-    plain_ms = {name: _cuda_ms(lambda t=t: exp_block_tiles.reference(e, t, layout.m),
+    plain_ms = {name: cuda_ms(lambda t=t: exp_block_tiles.reference(e, t, layout.m),
                                reps=3, windows=3, warmup=1) for name, t in tiles.items()}
     bounds = {name: _tile_bound_ms(t, n, d) for name, t in tiles.items()}
 
@@ -1245,7 +1214,7 @@ def phase_exp_tiles(dev):
             sub = block_spmm.tiles_from_arrays(
                 layout.tile_a[: r * layout.m], layout.tile_col[: r * layout.m],
                 np.repeat(np.arange(r, dtype=np.int32), layout.m), 1, r, device=dev)
-            by_rows[r] = _device_ms(lambda sub=sub: block_spmm.tile_matvec(e, sub))
+            by_rows[r] = graph_ms(lambda sub=sub: block_spmm.tile_matvec(e, sub))
     print("exp_tiles ms_by_row_blocks: " + json.dumps(by_rows), flush=True)
     del sub
 
@@ -1262,7 +1231,7 @@ def phase_exp_tiles(dev):
         lerr = (lib - out1).abs().max().item()
         check(lerr <= 1e-4 * max(1.0, scale),
               f"exp_tiles: the BSR product equals the kernel (max abs diff {lerr:.3g})")
-        library_ms = _cuda_ms(lambda: torch.sparse.mm(bsr, e), reps=5, windows=3, warmup=1)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(bsr, e), reps=5, windows=3, warmup=1)
         library_note = "torch.sparse.mm of a sparse_bsr_tensor with 128x128 blocks"
     print(f"exp_tiles library: {library_note}, ms {library_ms}", flush=True)
 
@@ -1352,7 +1321,7 @@ def _fill_scan(dev):
             bf16 = dataclasses.replace(f32, **{key: f32.values.to(torch.bfloat16)})
             for dt, t in (("f32", f32), ("bf16", bf16)):
                 _check_tiles(t, e, f"the fill scan at fill {fill:g}", scaled=True)
-                scan[f"{lay}_{dt}_ms"].append(_device_ms(lambda t=t: block_spmm.tile_matvec(e, t)))
+                scan[f"{lay}_{dt}_ms"].append(graph_ms(lambda t=t: block_spmm.tile_matvec(e, t)))
             del f32, bf16, t
     for dt in ("f32", "bf16"):
         scan[f"crossing_fill_{dt}"] = _crossing(
@@ -1596,7 +1565,7 @@ def _daemon_catalog(dev, bundle, model, params_v1, params_v2, int8: bool):
             t0 = time.perf_counter()
             r.recommend(users64, k=K)
             first_call_ms = (time.perf_counter() - t0) * 1e3
-            warm_call_ms = _host_ms(lambda: r.recommend(users64, k=K))
+            warm_call_ms = host_ms(lambda: r.recommend(users64, k=K))
         refs.append(_Reference(r, requests))
     f_ptr, f_items = membership_arrays(
         bundle.train.user_idx, bundle.train.item_idx, bundle.num_users)
@@ -1913,8 +1882,8 @@ def _mesh_retrieval(dev, bundle, mesh, requests, meas):
                   f"mesh (1,1) {name}: a {len(u)}-user request equals the single-device "
                   f"retriever's")
         for u in requests:
-            meas[f"{name}_b{len(u)}_ms_mesh"] = _host_ms(lambda: sharded[q].recommend(u, k=K))
-            meas[f"{name}_b{len(u)}_ms_single"] = _host_ms(lambda: single[q].recommend(u, k=K))
+            meas[f"{name}_b{len(u)}_ms_mesh"] = host_ms(lambda: sharded[q].recommend(u, k=K))
+            meas[f"{name}_b{len(u)}_ms_single"] = host_ms(lambda: single[q].recommend(u, k=K))
     for q, name in ((False, "f32"), (True, "int8")):
         print(f"profile_mesh_request_{name}: " + json.dumps(
             _profile_requests(sharded[q], single[q], requests[1])), flush=True)
@@ -2095,12 +2064,12 @@ def _layouts_fused(dev, g, emb, meas):
         f"propagate_sum_ell with bf16 storage returns f32 within {LAYOUT_BF16_TOL} of the f32 "
         f"result (max abs diff {d16:.3g})")
     x = emb.clone().requires_grad_(True)
-    meas["fused_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+    meas["fused_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         (spmm.propagate_sum_ell(3, x, *_fused_args(fused)) ** 2).sum(), x), reps=5)
-    meas["per_layer_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+    meas["per_layer_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         (_sum_of_layers(x, plain) ** 2).sum(), x), reps=5)
     x16 = emb.to(torch.bfloat16).requires_grad_(True)
-    meas["fused_bf16_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+    meas["fused_bf16_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         (spmm.propagate_sum_ell(3, x16, *_fused_args(fused16)) ** 2).sum(), x16), reps=5)
     perm = list(fused.bucket_nbr_idx_perm) + [fused.dense_mat_perm]
     meas["perm_views_gib"] = sum(t.numel() * t.element_size() for t in perm) / 2**30
@@ -2117,7 +2086,7 @@ def _layouts_chunked(dev, g, emb, plain, meas):
     one = lambda x: propagate_ell(  # noqa: E731
         x, plain.bucket_nbr_idx, plain.bucket_nbr_w, plain.gather_idx, plain.dense_mat)
     y_p, g_p = _value_and_grad(one, emb)
-    meas["plain_ms"] = _cuda_ms(lambda: one(emb), reps=5)
+    meas["plain_ms"] = cuda_ms(lambda: one(emb), reps=5)
     for c in LAYOUT_CHUNKS:
         t0 = time.perf_counter()
         build_chunked_ell(g, c)
@@ -2140,9 +2109,9 @@ def _layouts_chunked(dev, g, emb, plain, meas):
         check(y16.dtype == torch.bfloat16 and d16 <= CHUNK_BF16_RTOL * scale,
               f"chunked at C={c} with bf16 storage (f32 accumulation) within "
               f"{CHUNK_BF16_RTOL} x {scale:.3g} of f32 (max abs diff {d16:.3g})")
-        meas[f"c{c}_ms"] = _cuda_ms(lambda: spmm.propagate(emb, cg, n), reps=5)
+        meas[f"c{c}_ms"] = cuda_ms(lambda: spmm.propagate(emb, cg, n), reps=5)
         emb16 = emb.to(torch.bfloat16)
-        meas[f"c{c}_bf16_ms"] = _cuda_ms(lambda: spmm.propagate(emb16, cg16, n), reps=5)
+        meas[f"c{c}_bf16_ms"] = cuda_ms(lambda: spmm.propagate(emb16, cg16, n), reps=5)
         meas.update({f"c{c}_max_abs_diff": fwd, f"c{c}_grad_max_abs_diff": grad,
                      f"c{c}_bf16_max_abs_diff": d16})
         del cg, cg16
@@ -2351,16 +2320,16 @@ def _scale_tile_kernels(dev, bundle):
     for key, prefix in names.items():
         t = tiles[key]
         bound, by, _ = _tile_bound_ms(t, n, d)
-        rec[f"{prefix}ms_d256"] = _device_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
-        rec[f"{prefix}call_ms_d256"] = _cuda_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
+        rec[f"{prefix}ms_d256"] = graph_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
+        rec[f"{prefix}call_ms_d256"] = cuda_ms(lambda t=t: block_spmm.tile_matvec(emb, t))
         rec[f"{prefix}bound_ms_d256"] = bound
         rec[f"{prefix}bound_by_d256"] = by
-    rec["plain_ms_d256"] = _cuda_ms(
+    rec["plain_ms_d256"] = cuda_ms(
         lambda: block_spmm._tile_matvec_reference(emb, tiles[("compressed", torch.float32)]),
         reps=5)
-    rec["dense_layout_plain_ms_d256"] = _cuda_ms(
+    rec["dense_layout_plain_ms_d256"] = cuda_ms(
         lambda: block_spmm._tile_matvec_reference(emb, tiles[("dense", torch.float32)]), reps=5)
-    rec["library_ms_d256"] = _device_ms(lambda: torch.sparse.mm(csr, emb))
+    rec["library_ms_d256"] = graph_ms(lambda: torch.sparse.mm(csr, emb))
     print("scale_tiles: " + json.dumps(rec), flush=True)
     return rec
 
@@ -2443,7 +2412,7 @@ def _eval_batch_pieces(tr):
         scores = u @ fi.T
 
         def ms(fn):
-            return _cuda_ms(fn, reps=3, windows=3, warmup=1)
+            return cuda_ms(fn, reps=3, windows=3, warmup=1)
 
         out = {"users": int(u.shape[0]), "items": int(fi.shape[0]),
                "batch": ms(lambda: topk_eval_batch(fu, fi, *batch, K)),
@@ -2611,6 +2580,16 @@ def _recording(module, name: str, keep):
     return mock.patch.object(module, name, recorded)
 
 
+def _k2_recorder(calls):
+    """Record every quantizer launch (its mode, input, seed, row offset and
+    output) into ``calls`` while the launch runs as before."""
+    def keep(args, result):  # (wrapper, x, mode, seed, out[, row_offset])
+        calls.append(dict(mode=args[0].__name__, x=args[1].clone(), seed=args[3],
+                          row_offset=args[5] if len(args) > 5 else 0,
+                          out=(result[0].clone(), result[1].clone())))
+    return _recording(quant, "_launch_quantizer", keep)
+
+
 def _check_cli_quantizer(calls):
     """Each quantizer launch of a CLI command, bit-equal to the plain
     version of its mode on the inputs the command gave it: the command's
@@ -2682,14 +2661,8 @@ def phase_cli_dataset():
 
     users = [3, 7, 11, 19]
     k2_calls = []
-
-    def keep_k2(args, result):  # (wrapper, x, mode, seed, out[, row_offset])
-        k2_calls.append(dict(mode=args[0].__name__, x=args[1].clone(), seed=args[3],
-                             row_offset=args[5] if len(args) > 5 else 0,
-                             out=(result[0].clone(), result[1].clone())))
-
     quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
-    with _recording(quant, "_launch_quantizer", keep_k2):
+    with _k2_recorder(k2_calls):
         text = _cli(["recommend", *common, "--int8", "--k", str(K),
                      "--users", ",".join(map(str, users))])
     k2 = {"stochastic": quant.quantize_rows_int8.launches,
@@ -2772,6 +2745,237 @@ def phase_cli_dataset():
             "tile_matvec": k3}
 
 
+# ----------------------------------------------------------- phase 15: tools
+TOOLS_SERVE_ARGV = ["--users", "5000", "--items", "2000", "--brands", "200", "--batch", "256",
+                    "--reqs", "3", "--depths", "1", "4"]
+TOOLS_TILE_ARGV = ["--num_users", "10000", "--num_items", "5000", "--num_brands", "500",
+                   "--min_fills", "64", "--chain", "2"]
+
+
+def _tool(module, argv):
+    """``module.main(argv)`` in this process, its lines shown; returns
+    (its result, what it printed, seconds)."""
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = module.main(argv)
+    return result, tee.buf.getvalue(), time.perf_counter() - t0
+
+
+def _check_tool_quantizer(calls, tool: str):
+    """Every quantizer launch of a tool bit-equal to the plain version of
+    its mode on the inputs the tool gave it; returns the launches and the
+    shapes checked, by mode."""
+    seen = {}
+    for c in calls:
+        x, mode = c["x"], c["mode"]
+        if mode == "quantize_rows_int8":
+            plain = quant._quantize_rows_int8_reference(x, c["seed"], c["row_offset"])
+        else:
+            plain = quant._quantize_users_int8_reference(x)
+        q, s = c["out"]
+        if not (torch.equal(q, plain[0]) and torch.equal(s, plain[1])):
+            check(False, f"{tool}: {mode} bit-equal to plain at {list(x.shape)}")
+        entry = seen.setdefault(mode, {"launches": 0, "shapes": []})
+        entry["launches"] += 1
+        if list(x.shape) not in entry["shapes"]:
+            entry["shapes"].append(list(x.shape))
+    for mode, entry in seen.items():
+        check(True, f"{tool}: each of its {entry['launches']} {mode} launches bit-equal to "
+                    f"plain on its own inputs ({entry['shapes']})")
+    return seen
+
+
+def _raw_review_dump(directory: str, seed: int = 0, n_users: int = 300, n_items: int = 120):
+    """Review and metadata JSONL of the ``amazon_books_emb`` recipe's layout,
+    drawn from ``seed``, with a few malformed lines; returns their paths."""
+    rng = np.random.default_rng(seed)
+    reviews = os.path.join(directory, "reviews.jsonl")
+    meta = os.path.join(directory, "meta.jsonl")
+    with open(reviews, "w") as f:
+        for u in range(n_users):
+            for i in rng.choice(n_items, 12 + int(rng.integers(0, 6)), replace=False):
+                f.write(json.dumps({
+                    "user_id": f"u{u}", "item_id": f"i{int(i)}",
+                    "rating": float(rng.integers(1, 6)), "timestamp": float(rng.integers(0, 99)),
+                    "sentiment": "positive" if rng.random() < 0.9 else "negative"}) + "\n")
+        f.write('{"user_id": "u0", "item_id": "i0", "rat\n[1, 2]\nnull\n')
+    with open(meta, "w") as f:
+        for i in range(n_items):
+            f.write(json.dumps({
+                "item_id": f"i{i}",
+                "categories": ["Root"] + [f"C{int(c)}" for c in rng.integers(0, 8, 2)],
+                "embd": rng.standard_normal(64).round(4).tolist()}) + "\n")
+        f.write('{"item_id": "i2", "categor\n')
+    return reviews, meta
+
+
+def phase_tools(dev):
+    """Phase 15: the port's measurement and drill tools, each through its
+    ``main(argv)`` in this process at a reduced size.  Returns K2's and
+    K3's launches on the tools' paths, each counted from 0 around its tool."""
+    from gcn_recommendation_tpu_torch.tools import (
+        calibrate_regimes,
+        card_checks,
+        exp_hub_threshold,
+        exp_min_width,
+        exp_serve,
+        exp_step_profile,
+        exp_tile_spmm,
+        exp_topk_mask,
+        multiproc_dryrun,
+        real_data_dryrun,
+    )
+
+    t_phase = time.perf_counter()
+    rec, launches = {}, {}
+
+    # card_checks at its full size: K2 stochastic 3 (seeds 1, 1, 2), nearest
+    # 1 for the overlap + 3 warm-up + 3 x 40 timed
+    calls = []
+    quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
+    with _k2_recorder(calls):
+        res, text, sec = _tool(card_checks, [])
+    k2 = {"stochastic": quant.quantize_rows_int8.launches,
+          "nearest": quant.quantize_users_int8.launches}
+    check("ALL CARD CHECKS PASSED" in text and res["overlap"] > MIN_INT8_OVERLAP,
+          f"card_checks passed (overlap {res['overlap']:.4f}, step error {res['step_err']:.4f}, "
+          f"bias {res['mean_bias']:.2e})")
+    check(k2 == {"stochastic": 3, "nearest": 124},
+          f"card_checks: K2 launched 3 stochastic + 124 nearest ({k2})")
+    _check_tool_quantizer(calls, "card_checks")
+    launches["card_checks"] = k2
+    rec["card_checks"] = dict(res, seconds=round(sec, 1))
+    del calls
+
+    # exp_serve: K2 stochastic once at the int8 catalog's load, nearest once a
+    # request (1 warm-up + 3 repetitions x 3 requests)
+    calls = []
+    quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
+    with _k2_recorder(calls):
+        res, _, sec = _tool(exp_serve, TOOLS_SERVE_ARGV)
+    k2 = {"stochastic": quant.quantize_rows_int8.launches,
+          "nearest": quant.quantize_users_int8.launches}
+    check(k2 == {"stochastic": 1, "nearest": 10},
+          f"exp_serve: K2 launched once on the int8 load and once a request ({k2})")
+    _check_tool_quantizer(calls, "exp_serve")
+    check(all(np.isfinite(v["ms"]) for v in res["per_request"].values()),
+          "exp_serve: per-request rows timed")
+    launches["exp_serve"] = k2
+    rec["exp_serve"] = {k: v for k, v in res.items() if k != "answers"}
+    rec["exp_serve"]["seconds"] = round(sec, 1)
+    del calls
+
+    # exp_tile_spmm at one min_fill: K3 forward and backward through the tool's
+    # own chains, the first call on each tile set in each pass held against
+    # plain.  A call without grad after one with grad is a backward (the
+    # cotangent); one before any is the tool's forward check.
+    k3_calls, saw_grad = {}, set()
+
+    def keep_k3(args, result):  # (emb, tiles)
+        tid = id(args[1])
+        if args[0].requires_grad:
+            saw_grad.add(tid)
+            pass_ = "forward"
+        else:
+            pass_ = "backward" if tid in saw_grad else "forward (no grad)"
+        if (tid, pass_) not in k3_calls:
+            k3_calls[(tid, pass_)] = (args[1], args[0].detach().clone(), result.detach().clone())
+
+    block_spmm.tile_matvec.launches = 0
+    with _recording(block_spmm, "_tile_matvec_cuda", keep_k3):
+        res, _, sec = _tool(exp_tile_spmm, TOOLS_TILE_ARGV)
+    k3 = block_spmm.tile_matvec.launches
+    # per tile dtype: 1 check + (1 warm-up + 3 windows) x chain x (1 fwd + 2 fwd+bwd)
+    want = 2 * (1 + 4 * 2 * 3)
+    check(k3 == want, f"exp_tile_spmm: K3 launched {k3}x = {want} (2 dtypes x (1 + 4 x 2 x 3))")
+    checked = []
+    for (_, pass_), (tiles, emb, out_k) in k3_calls.items():
+        what = (f"exp_tile_spmm's partition, {pass_} ({tiles.num_tiles} tiles, "
+                f"emb {list(emb.shape)})")
+        checked.append({"pass": pass_, "dtype": str(tiles.values.dtype).replace("torch.", ""),
+                        "max_abs_diff_tool": _check_tiles(tiles, emb, what + ", the tool's output",
+                                                          k=out_k),
+                        "max_abs_diff_relaunched": _check_tiles(tiles, emb, what + ", relaunched")})
+    check({(c["pass"], c["dtype"]) for c in checked}
+          == {(p, d) for p in ("forward (no grad)", "forward", "backward")
+              for d in ("float32", "bfloat16")},
+          "exp_tile_spmm: K3's inputs of each pass and tile dtype held against plain")
+    for case in res["cases"]:
+        if case["dtype"] == "float32":
+            check(case["max_err"] <= PROPAGATION_ATOL,
+                  f"exp_tile_spmm: f32 tiles vs ELL max err {case['max_err']:.2e}")
+    del k3_calls
+    launches["exp_tile_spmm"] = k3
+    rec["exp_tile_spmm"] = {"seconds": round(sec, 1), "k3": k3, "checked": checked,
+                            "cases": [{k: v for k, v in c.items() if k != "times"}
+                                      for c in res["cases"]]}
+
+    res, _, sec = _tool(exp_topk_mask, ["--filters", "8"])
+    check(len(res["rows"]) == 6 and all(np.isfinite(v) for v in res["rows"].values()),
+          "exp_topk_mask at F = 8: fixup and compare exact against scatter; 6 rows timed")
+    rec["exp_topk_mask"] = {"seconds": round(sec, 1),
+                            "ms": {f"{f}:{n}": v for (f, n), v in res["rows"].items()}}
+
+    res, _, sec = _tool(exp_hub_threshold, ["--thresholds", "256", "128", "--chain", "3"])
+    hubs = [r["hubs"] for r in res["rows"]]
+    check(len(hubs) == 2 and hubs[0] <= hubs[1]
+          and all(np.isfinite(r["fwdbwd_ms"]) for r in res["rows"]),
+          f"exp_hub_threshold at 256 and 128: hubs {hubs}, both timed")
+    rec["exp_hub_threshold"] = dict(res, seconds=round(sec, 1))
+
+    res, _, sec = _tool(exp_min_width, ["--nb", "400000", "--wide_nb", "200000",
+                                        "--wide_widths"])
+    check(len(res["rows"]) == 4 and all(np.isfinite(r["ms"]) for r in res["rows"]),
+          "exp_min_width at width 8, NB 400,000: four forms timed")
+    rec["exp_min_width"] = dict(res, seconds=round(sec, 1))
+
+    res, _, sec = _tool(exp_step_profile, ["--chain", "3"])
+    rows = res["rows"]
+    ladder = ("full_step (per-layer)", "full_step (fused merge-skip)", "step fixed-neg",
+              "step fixed-neg+sgd", "step dot-loss (no batch rows)", "fwd+bwd 3-layer",
+              "fwd 3-layer")
+    check(len(rows) == 16 and all(np.isfinite(r["wall"]) and np.isfinite(r["events"])
+                                  for r in rows.values())
+          and all(rows[n]["busy"] is not None and rows[n]["busy"] > 0 for n in ladder),
+          "exp_step_profile: 16 rows with wall and event ms a step, the ladder's with busy ms "
+          f"(profiler windows without device events: "
+          f"{[n for n, r in rows.items() if r['busy'] is None]})")
+    rec["exp_step_profile"] = {"seconds": round(sec, 1), "graph": res["graph_line"],
+                               "rows": rows, "attribution": res["attribution"]}
+
+    res, text, sec = _tool(calibrate_regimes, ["--regime", "books", "--epochs", "2",
+                                               "--val_interval", "1", "--oracle"])
+    check("SUMMARY best R@20=" in text and 0 < res["best_recall"] <= res["oracle"],
+          f"calibrate_regimes books 2 epochs: best R@20 {res['best_recall']:.4f} under the "
+          f"oracle {res['oracle']:.4f}")
+    rec["calibrate_regimes"] = dict(res, seconds=round(sec, 1))
+
+    rc, text, sec = _tool(multiproc_dryrun, ["1", "--device", "cuda", "--timeout", "300"])
+    check(rc == 0 and "multiproc_dryrun PASSED" in text,
+          "multiproc_dryrun as a world of one over NCCL: collectives, sharded forward, "
+          "checkpoint kill and resume, halo equality")
+    rec["multiproc_dryrun"] = {"seconds": round(sec, 1)}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    reviews, meta = _raw_review_dump(tmp)
+    rc, text, sec = _tool(real_data_dryrun, ["--recipe", "amazon_books_emb", "--review_path",
+                                             reviews, "--meta_path", meta, "--core", "5",
+                                             "--full_dir", os.path.join(tmp, "out")])
+    check(rc == 0 and "dryrun OK" in text and "debug-train best recall" in text,
+          "real_data_dryrun on a generated amazon_books_emb dump: ETL, loader, debug training")
+    rc_missing, _, _ = _tool(real_data_dryrun, ["--recipe", "amazon_books_emb", "--review_path",
+                                                os.path.join(tmp, "nope.jsonl"),
+                                                "--meta_path", meta])
+    check(rc_missing == 2, "real_data_dryrun exits 2 on a missing input")
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["real_data_dryrun"] = {"seconds": round(sec, 1)}
+
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    print("tools: " + json.dumps(rec, default=float), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -2779,10 +2983,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
@@ -2806,6 +3007,7 @@ def main() -> int:
     layout_launches = phase_layouts(dev, bundle, train_ref)
     scale_tile_record, scale_quant_launches = phase_scale(dev, bundle)
     cli_launches = phase_cli_dataset()
+    tools_launches = phase_tools(dev)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -2827,6 +3029,10 @@ def main() -> int:
                                          + cli_launches["quantize_users_int8"])
     quant_record["launches_cli_path_nearest"] = cli_launches["quantize_users_int8"]
     tile_record["launches_cli_path"] = cli_launches["tile_matvec"]
+    for tool in ("card_checks", "exp_serve"):
+        quant_record[f"launches_{tool}_stochastic"] = tools_launches[tool]["stochastic"]
+        quant_record[f"launches_{tool}_nearest"] = tools_launches[tool]["nearest"]
+    tile_record["launches_exp_tile_spmm"] = tools_launches["exp_tile_spmm"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),

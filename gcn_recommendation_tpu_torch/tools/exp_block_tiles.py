@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from gcn_recommendation_tpu_torch.ops.block_spmm import (
     tile_matvec,
     tiles_from_arrays,
 )
+from gcn_recommendation_tpu_torch.utils.timing import cuda_ms, host_ms
 
 N_BLOCKS = 564   # 128-row blocks of the embedding
 D = 64
@@ -154,18 +154,12 @@ def moved_bytes(tiles: TileDeviceArrays, d: int) -> int:
 def timed_chain(e: torch.Tensor, tiles: TileDeviceArrays, steps: int = CHAIN):
     """(seconds per application, chain sum) of the second of two chains:
     CUDA events on the card, the host clock on the CPU."""
-    float(chain(e, tiles, steps))
-    if e.device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        total = chain(e, tiles, steps)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / steps, float(total)
-    t0 = time.perf_counter()
     total = float(chain(e, tiles, steps))
-    return (time.perf_counter() - t0) / steps, total
+    if e.device.type == "cuda":
+        ms = cuda_ms(lambda: chain(e, tiles, steps), reps=1, windows=1, warmup=0)
+    else:
+        ms = host_ms(lambda: chain(e, tiles, steps), reps=1, warmup=0)
+    return ms / 1e3 / steps, total
 
 
 def run_case(

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import statistics
 import subprocess
 import time
 
@@ -41,6 +40,7 @@ from gcn_recommendation_tpu_torch.ops.spmm import (
     to_device_chunked_graph,
     to_device_graph,
 )
+from gcn_recommendation_tpu_torch.utils.timing import cuda_ms
 
 SIZES = (72_000, 180_000, 400_000, 1_000_000)
 CHUNKS = (2, 4)
@@ -74,22 +74,6 @@ def cast_layout(layout, dtype):
                                  for chunk in layout.chunk_bucket_w))
     return dataclasses.replace(layout, dense_mat=layout.dense_mat.to(dtype),
                                bucket_nbr_w=tuple(w.to(dtype) for w in layout.bucket_nbr_w))
-
-
-def _ms(fn, reps: int = 4, windows: int = 3) -> float:
-    """CUDA-event ms of one ``fn()``: median over ``windows`` of ``reps``
-    back-to-back calls, after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(windows):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 @torch.no_grad()
@@ -138,7 +122,7 @@ def scan(device, sizes=SIZES, chunks=CHUNKS, repeats: int = REPEATS,
             times = {key: [] for key in calls}
             for _ in range(repeats):  # in turns: plain, c2, c4, ..., then again
                 for key, fn in calls.items():
-                    times[key].append(_ms(fn))
+                    times[key].append(cuda_ms(fn, reps=4, windows=3, warmup=1))
             rec[f"{name}_ms"] = times
             del layouts, plain, calls, emb
         del f32

@@ -31,6 +31,7 @@ host-clock time per step.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -42,7 +43,8 @@ import torch
 
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.ops import quant
-from gcn_recommendation_tpu_torch.tools.exp_tile_variants import _device_ms, variant_source
+from gcn_recommendation_tpu_torch.tools.exp_tile_variants import variant_source
+from gcn_recommendation_tpu_torch.utils.timing import cuda_ms, graph_ms
 
 HBM_BYTES_PER_S = 3.35e12
 STOCHASTIC, NEAREST = 0, 1
@@ -76,21 +78,8 @@ TIME_ONLY = {"no_div"}
 PASSES = 2  # every variant is timed in two passes over the list: the spread of one card
 
 
-def _call_ms(fn, reps: int = 200, windows: int = 5) -> float:
-    """ms of one ``fn()`` in an eager loop (CUDA events, median of windows)."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+# ms of one call in an eager loop: 200 calls a window, after 20 warm-up calls
+_call_ms = functools.partial(cuda_ms, reps=200, warmup=20)
 
 
 def _host_us(fn, reps: int = 5000) -> float:
@@ -175,11 +164,11 @@ def time_variant(name, lib, dev, with_v1: bool) -> None:
         row = {"variant": name, "shape": [n, d],
                "mode": "stochastic" if mode == STOCHASTIC else "nearest",
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "ms": _device_ms(lambda: _launch(lib, x, mode, 3, q, s))}
+               "ms": graph_ms(lambda: _launch(lib, x, mode, 3, q, s))}
         row["gb_per_s"] = nbytes / row["ms"] / 1e6
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if with_v1:
-            row["v1_ms"] = _device_ms(lambda: _launch_v1(lib, x, 3, q, s))
+            row["v1_ms"] = graph_ms(lambda: _launch_v1(lib, x, 3, q, s))
             row["v1_share_of_bound"] = row["bound_ms"] / row["v1_ms"]
             # the floor: a kernel that does nothing, on a grid of the shipped kernel's
             # size (at d = 64: 32 rows a block of 256 threads with two rows in flight, 16
@@ -187,7 +176,7 @@ def time_variant(name, lib, dev, with_v1: bool) -> None:
             # which runs under the graph's capture stream
             per_block = 32 if n >= 32 * sms else 16
             blocks = min(-(-n // per_block), 8 * sms)
-            row["empty_ms"] = _device_ms(lambda: lib.quant_int8_empty_launch(
+            row["empty_ms"] = graph_ms(lambda: lib.quant_int8_empty_launch(
                 blocks, 256, torch.cuda.current_stream().cuda_stream))
             row["empty_grid"] = [blocks, 256]
         print(json.dumps(row), flush=True)
@@ -291,7 +280,7 @@ def time_call(lib, dev) -> None:
             "call_ms": _call_ms(lambda: quant.quantize_rows_int8(xs, seed=3)),
             "call_ms_out": _call_ms(lambda: quant.quantize_rows_int8(xs, seed=3, out=out)),
             "nearest_call_ms_out": _call_ms(lambda: quant.quantize_users_int8(xs, out=out)),
-            "plain_nearest_call_ms": _call_ms(
+            "plain_nearest_call_ms": cuda_ms(
                 lambda: quant._quantize_users_int8_reference(xs), reps=50),
             # the host alone: the same calls with nothing waited for
             "first_wrapper_host_us": _host_us(lambda: _first_wrapper(lib, xs, 3), reps=500),

@@ -28,7 +28,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import statistics
 import subprocess
 import tempfile
 
@@ -37,6 +36,7 @@ import torch
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.ops import block_spmm
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles
+from gcn_recommendation_tpu_torch.utils.timing import graph_ms
 
 _PLAIN_CP = 'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"'
 _HINT_CP = 'asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\\n"'
@@ -69,31 +69,6 @@ def variant_source(source: str, edits, name: str = "csrc/tile_spmm.cu") -> str:
             raise ValueError(f"{name} no longer holds {old!r}: update VARIANTS")
         source = source.replace(old, new)
     return source
-
-
-def _device_ms(fn, reps: int = 20, windows: int = 5) -> float:
-    """ms of one ``fn()`` on the card: ``reps`` calls in one CUDA graph,
-    the median over ``windows`` timed replays."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(windows):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -130,7 +105,7 @@ def main() -> int:
                 for key, t in tiles.items():
                     out = block_spmm.tile_matvec(e, t)
                     row[f"{key}_max_abs_diff"] = float((out - refs[key]).abs().max())
-                    row[f"{key}_ms"] = _device_ms(lambda t=t: block_spmm.tile_matvec(e, t))
+                    row[f"{key}_ms"] = graph_ms(lambda t=t: block_spmm.tile_matvec(e, t))
                 print(json.dumps(row), flush=True)
         finally:
             _build._loaded["tile_spmm"] = real

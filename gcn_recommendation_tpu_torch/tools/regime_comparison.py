@@ -24,10 +24,13 @@ port's delta has the JAX sign wherever the JAX delta lies outside the band.
 
 A code that misses is rerun at a second training seed into
 ``<port grid>/seed<N>/results/<code>/`` (``tools/grid_lanes.sh`` with
-``SEED``).  The table of second seeds gives, for each metric the code
-missed, the JAX value beside both of the port's; the miss is seed variance
-when the port's two values straddle the JAX one (for the shape: when one
-of the two seeds has the JAX label).
+``SEED``); the JAX package's own runs of such a code at another seed (its
+``tools/run_experiments.py`` on the CPU) go to
+``<port grid>/jax_cpu_seed<N>/results/<code>/``, judged by the same rule
+with the roles swapped (``jax_seed_rows``).  The table of second seeds
+gives, for each metric the code missed, the JAX value beside both of the
+port's; the miss is seed variance when the port's two values straddle the
+JAX one (for the shape: when one of the two seeds has the JAX label).
 
     python -m gcn_recommendation_tpu_torch.tools.regime_comparison [--port_root DIR]
 """
@@ -277,10 +280,19 @@ def second_seed_rows(cmp: Dict, seconds: Dict[str, List[Dict]]) -> List[Dict]:
     return out
 
 
-def fmt_second_seeds(rows: List[Dict]) -> str:
+def jax_seed_rows(port: List[Dict], jax: List[Dict], jax_seeds: Dict[str, List[Dict]]):
+    """The same rule with the roles swapped: for each code that misses, the
+    port's value beside the JAX package's committed run and its run at
+    another seed (``jax_seeds``: label -> runs), and whether the two JAX
+    runs straddle the port's value (for the shape: whether one has the
+    port's label)."""
+    return second_seed_rows(compare(jax, port), jax_seeds)
+
+
+def fmt_second_seeds(rows: List[Dict], ref: str = "JAX", ours: str = "port") -> str:
     if not rows:
         return ""
-    lines = ["| code | missed | JAX | port | port, second seed | seed variance? |",
+    lines = [f"| code | missed | {ref} | {ours} | {ours}, second seed | seed variance? |",
              "|---|---|---|---|---|---|"]
     for r in rows:
         vals = [r[k] if r["metric"] == "shape" else f"{r[k]:.4f}"
@@ -346,6 +358,13 @@ def main(argv=None) -> int:
         if second:
             out.append("Misses rerun at a second seed:\n")
             out.append(fmt_second_seeds(second))
+        jax_seeds = {os.path.basename(d): read_runs(d) for d in
+                     sorted(glob.glob(os.path.join(args.port_root, port_dir, "jax_cpu_seed*")))}
+        theirs = jax_seed_rows(port, jax, jax_seeds)
+        if theirs:
+            out.append("Misses against the JAX package's own run at another seed "
+                       "(`tools/run_experiments.py` on the CPU):\n")
+            out.append(fmt_second_seeds(theirs, ref="port", ours="JAX"))
     print("\n".join(out))
     return 0
 

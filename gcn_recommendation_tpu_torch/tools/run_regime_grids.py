@@ -1,9 +1,10 @@
 """Generate the synthetic regime datasets and run the experiment grid on each.
 
 Counterpart of the JAX package's ``tools/run_regime_grids.py``, with the
-port's own copies of its tables: ``REGIMES`` (the regime definitions of
-``tools/calibrate_regimes.py``, calibrated there against the reference's
-recall bands), ``EMB_NOISE`` and ``BRAND_STYLE``.  Each regime's dataset
+port's own copies of its tables ``EMB_NOISE`` and ``BRAND_STYLE``; the
+regime definitions are ``REGIMES`` of the port's
+``tools/calibrate_regimes.py``, which calibrates them, as in the JAX
+package.  Each regime's dataset
 is made by the port's generator (``data/synthetic.py``) and its grid run
 by the port's ``tools/run_experiments.py``; the ``lase`` pass reruns
 ``brd,nob`` at ``--seed`` + 1, the duplicate-config runs that measure the
@@ -31,34 +32,10 @@ import argparse
 import os
 import time
 
+from gcn_recommendation_tpu_torch.tools.calibrate_regimes import REGIMES
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# The regime definitions, as tools/calibrate_regimes.py commits them.
-REGIMES = {
-    # books: the committed exp_synth/ grid's recipe
-    "books": dict(num_users=10000, num_items=5000, num_brands=200,
-                  mean_degree=25.0, latent_dim=16, temperature=0.35,
-                  pop_scale=0.5),
-    # the community-structured generator, a starting point for re-banding
-    # the sparse regimes
-    "books_cluster": dict(num_users=10000, num_items=5000, num_brands=200,
-                          mean_degree=25.0, latent_dim=50, temperature=0.3,
-                          pop_scale=0.5, split="rank", rank_key="taste",
-                          pop_zipf=0.6, deg_sigma=1.0,
-                          taste_style="cluster", clusters_per_user=3),
-    # dense steam-like: popularity-concentrated taste, converged by ep135
-    "dense": dict(num_users=6000, num_items=2500, num_brands=100,
-                  mean_degree=100.0, latent_dim=8, temperature=0.27,
-                  pop_scale=1.0, emb_style="mislead"),
-    # weak signal: best R@20 ~0.06, flat from epoch 5
-    "zno": dict(num_users=12000, num_items=8000, num_brands=300,
-                mean_degree=15.0, latent_dim=20, temperature=0.40,
-                pop_scale=0.5),
-    # sparse sport: one Fusion run, early peak in the 0.05 band
-    "sport": dict(num_users=12000, num_items=10000, num_brands=300,
-                  mean_degree=13.0, latent_dim=20, temperature=0.41,
-                  pop_scale=0.5),
-}
 # Content-embedding noise per regime (dense's content is misleading:
 # emb_style='mislead' in its regime dict).
 EMB_NOISE = {"dense": 0.5, "zno": 1.5, "sport": 1.5, "books": 0.2}

@@ -24,6 +24,13 @@ def _port_modules():
     return sorted(mods)
 
 
+# the measurement and drill tools of slice 10, and the timers beneath them
+TOOL_MODULES = ("utils.timing", "tools.calibrate_regimes", "tools.exp_serve",
+                "tools.exp_step_profile", "tools.exp_topk_mask", "tools.exp_hub_threshold",
+                "tools.exp_min_width", "tools.exp_tile_spmm", "tools.card_checks",
+                "tools.multiproc_dryrun", "tools.real_data_dryrun")
+
+
 def test_port_lists_its_modules():
     mods = _port_modules()
     for m in ("ops.quant", "ops.spmm", "ops.topk", "serve", "cli", "kernels._build",
@@ -35,7 +42,7 @@ def test_port_lists_its_modules():
               "tools.exp_quant_call", "tools.exp_daemon_backlog", "data.native_ext",
               "tools.exp_gather_knee", "tools.exp_scale", "ops", "graph", "data",
               "data.parquet", "tools.run_experiments", "tools.run_regime_grids",
-              "tools.regime_comparison", "tools.exp_parquet_read"):
+              "tools.regime_comparison", "tools.exp_parquet_read", *TOOL_MODULES):
         assert f"{PKG}.{m}" in mods
 
 
@@ -147,6 +154,44 @@ def test_entry_points_raise_without_cuda(tmp_path):
             call()
 
 
+def test_tools_default_to_the_card_and_raise_without_cuda(tmp_path):
+    """Every tool of slice 10 runs on ``cuda`` unless ``--device cpu`` is
+    given; without a card it raises before it measures anything."""
+    _no_card()
+    from gcn_recommendation_tpu_torch.tools import (
+        calibrate_regimes,
+        card_checks,
+        exp_hub_threshold,
+        exp_min_width,
+        exp_serve,
+        exp_step_profile,
+        exp_tile_spmm,
+        exp_topk_mask,
+        multiproc_dryrun,
+        real_data_dryrun,
+    )
+
+    small = ["--num_users", "40", "--num_items", "30", "--num_brands", "4"]
+    dump = tmp_path / "dump.jsonl"
+    dump.write_text("")
+    calls = [
+        (calibrate_regimes, small + ["--epochs", "0"]),
+        (card_checks, []),
+        (exp_hub_threshold, small),
+        (exp_min_width, ["--src_rows", "10", "--nb", "10", "--wide_nb", "10"]),
+        (exp_serve, ["--users", "40", "--items", "30", "--brands", "4"]),
+        (exp_step_profile, small),
+        (exp_tile_spmm, small),
+        (exp_topk_mask, ["--batch", "4", "--items", "30"]),
+        (multiproc_dryrun, ["1"]),
+        (real_data_dryrun, ["--recipe", "amazon_books", "--review_path", str(dump),
+                            "--meta_path", str(dump)]),
+    ]
+    for tool, argv in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(argv)
+
+
 def test_cli_without_device_raises_without_cuda(tmp_path):
     _no_card()
     from gcn_recommendation_tpu_torch import cli
@@ -170,7 +215,8 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
                 "tools/exp_scale.py", "ops/block_spmm.py", "data/parquet.py",
                 "data/loader.py", "data/synthetic.py", "tools/run_experiments.py",
                 "tools/run_regime_grids.py", "tools/regime_comparison.py",
-                "tools/exp_parquet_read.py"):
+                "tools/exp_parquet_read.py",
+                *(m.replace(".", "/") + ".py" for m in TOOL_MODULES)):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
