@@ -203,7 +203,23 @@ fails:
    (best R@20 under the oracle), ``multiproc_dryrun`` as a world of one
    over NCCL (``PASSED``) and ``real_data_dryrun`` on an
    ``amazon_books_emb`` dump drawn from a seed (exit 0; a missing input
-   exits 2).
+   exits 2);
+16. the seven studies ported from the JAX repo's root ``tools/``
+   (``tools11:`` line with each tool's seconds), each through its
+   ``main(argv)`` at a reduced size, with K2's and K3's
+   counts set to 0 before them and read after (none of the seven launches
+   either): ``exp_bf16_accuracy`` 5 epochs of both dtypes at 5,000 users x
+   2,000 items (best Recall@20 in (0, 1]), ``exp_spmm_variants`` at the
+   books regime's size with 5-call chains (bucketed within 1e-4 of flat,
+   four forms timed with and without the host, CUDA kernels counted),
+   ``exp_dim_split`` at 90k and 360k rows x d 128 and 256 and
+   ``exp_knee_d192`` at 120k and 240k rows (1M gathered rows; across the
+   port's 166,666-row knee), each gather equal to the CPU's ``emb[idx]``,
+   ``exp_block_density`` on the heavy graph at 10,000 users,
+   ``exp_block_matmul`` at 16 x 384 tiles (its f32 and bf16 variants held
+   against the CPU's f32 formula on a small case: 1e-4 and 2e-2 of the
+   largest value) and ``exp_compile_cost`` for the fused variant in a
+   fresh process (``--keep_build``; finite losses).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -2976,6 +2992,127 @@ def phase_tools(dev):
     return launches
 
 
+# ------------------------------------------------------ phase 16: studies
+STUDIES_SMALL = ["--num_users", "10000", "--num_items", "5000", "--num_brands", "500"]
+
+
+def _check_gather_on_card(dev):
+    """One gather of the gather studies on the card against the CPU's."""
+    from gcn_recommendation_tpu_torch.tools import exp_dim_split
+
+    emb, idx, buf = exp_dim_split.gather_case(np.random.default_rng(5), 50_000, 192,
+                                              1_000_000, dev)
+    torch.index_select(emb, 0, idx, out=buf)
+    check(torch.equal(buf.cpu(), emb.cpu()[idx.cpu()]),
+          "exp_dim_split / exp_knee_d192: index_select into the buffer equals emb[idx] "
+          "(50,000 x 192, 1M rows)")
+
+
+def _check_block_matmul_on_card(dev):
+    """The block study's f32 and bf16 variants on the card against the CPU's
+    f32 formula on one small case."""
+    from gcn_recommendation_tpu_torch.tools import exp_block_matmul as bm
+
+    n_blocks, m, r_blocks = 40, 8, 12
+    case = bm.make_case(np.random.default_rng(3), n_blocks, 64, m * r_blocks, dev)
+    with torch.no_grad():
+        want = bm.full(*(x.cpu() for x in case), n_blocks, m, r_blocks)
+        f32 = bm.full(*case, n_blocks, m, r_blocks).cpu()
+        bf16 = bm.full_bf16(*case, n_blocks, m, r_blocks).cpu()
+    scale = float(want.abs().max())
+    err32, err16 = float((f32 - want).abs().max()), float((bf16 - want).abs().max())
+    check(err32 <= 1e-4 * scale and err16 <= 2e-2 * scale,
+          f"exp_block_matmul on the card vs the CPU's f32 formula: f32 {err32:.2e}, "
+          f"bf16 tiles {err16:.2e} (largest {scale:.2f})")
+
+
+def phase_studies(dev):
+    """Phase 16: the seven studies, each through its ``main(argv)`` in
+    this process at a reduced size; K2 and K3 counted from 0 around them."""
+    from gcn_recommendation_tpu_torch.tools import (
+        exp_bf16_accuracy,
+        exp_block_density,
+        exp_block_matmul,
+        exp_compile_cost,
+        exp_dim_split,
+        exp_knee_d192,
+        exp_spmm_variants,
+    )
+
+    t_phase = time.perf_counter()
+    quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
+    block_spmm.tile_matvec.launches = 0
+    rec = {}
+
+    res, text, sec = _tool(exp_bf16_accuracy, ["--num_users", "5000", "--num_items", "2000",
+                                               "--num_brands", "200", "--epochs", "5"])
+    best = [res[d]["best_recall"] for d in ("float32", "bfloat16")]
+    check("SUMMARY recall@20:" in text and all(0 < r <= 1 for r in best),
+          f"exp_bf16_accuracy 5 epochs: best R@20 f32 {best[0]:.4f} bf16 {best[1]:.4f}")
+    rec["exp_bf16_accuracy"] = {"seconds": round(sec, 1), "best_recall": best,
+                                "ms_per_step": [res[d]["ms_per_step"]
+                                                for d in ("float32", "bfloat16")]}
+
+    res, _, sec = _tool(exp_spmm_variants, ["--num_users", "10000", "--num_items", "5000",
+                                            "--chain", "5"])
+    rows = res["rows"]
+    check(res["max_abs_diff"] < 1e-4 and len(rows) == 4
+          and all(np.isfinite(r["ms"]) and np.isfinite(r["graph_ms"]) and r["kernels"] != 0
+                  for r in rows),
+          f"exp_spmm_variants at the books regime's size: bucketed vs flat "
+          f"{res['max_abs_diff']:.1e}, four forms timed with and without the host, kernels "
+          f"{[r['kernels'] for r in rows]}")
+    rec["exp_spmm_variants"] = {"seconds": round(sec, 1), "rows": rows}
+
+    _check_gather_on_card(dev)
+    res, _, sec = _tool(exp_dim_split, ["--rows", "90000", "360000", "--rows_per_iter",
+                                        "1000000", "--chain", "5"])
+    check(len(res["rows"]) == 4 and len(res["summary"]) == 4
+          and all(np.isfinite(r["ns_per_row"]) for r in res["rows"]),
+          "exp_dim_split at 90k and 360k rows x d 128 and 256: four rates, four summary lines")
+    rec["exp_dim_split"] = {"seconds": round(sec, 1), "summary": res["summary"]}
+
+    res, _, sec = _tool(exp_knee_d192, ["--rows", "120000", "240000", "--rows_per_iter",
+                                        "1000000", "--chain", "5"])
+    check(res["knee_rows"] == 166_666 and res["above_over_below"] is not None,
+          f"exp_knee_d192 across the 166,666-row knee: x{res['above_over_below']:.3f}")
+    rec["exp_knee_d192"] = {"seconds": round(sec, 1), "ratio": res["above_over_below"]}
+
+    res, _, sec = _tool(exp_block_density, STUDIES_SMALL + ["--styles", "heavy"])
+    heavy = res["styles"]["heavy"]
+    check(all(0 <= a <= b <= 1 for a, b in (heavy["original"], heavy["degree-sorted"],
+                                            heavy["non-hub"])),
+          "exp_block_density on the heavy graph: coverage in [0, 1], the card's break-even "
+          "covering at least the TPU's")
+    rec["exp_block_density"] = {"seconds": round(sec, 1), "degree_sorted": heavy["degree-sorted"]}
+
+    _check_block_matmul_on_card(dev)
+    res, _, sec = _tool(exp_block_matmul, ["--configs", "16x384", "--chain", "5"])
+    rows = res["configs"][0]["rows"]
+    check(len(rows) == 5 and all(np.isfinite(r["ms"]) and np.isfinite(r["graph_ms"])
+                                 for r in rows),
+          "exp_block_matmul at 16 x 384 tiles: four variants and the row gather timed")
+    rec["exp_block_matmul"] = {"seconds": round(sec, 1),
+                               "ms": {r["name"]: r["ms"] for r in rows}}
+
+    res, _, sec = _tool(exp_compile_cost, STUDIES_SMALL + ["--variant", "fused",
+                                                           "--keep_build", "--steps", "20"])
+    fused = res["fused"]
+    check(np.isfinite(fused["first_losses"]).all() and fused["steady_s"] > 0,
+          f"exp_compile_cost fused in a fresh process: CUDA init {fused['cuda_init_s']:.2f} s, "
+          f"first epoch {fused['first_s']:.2f} s, steady {fused['steady_s']:.2f} s")
+    rec["exp_compile_cost"] = {"seconds": round(sec, 1),
+                               **{k: fused.get(k) for k in ("startup_s", "cuda_init_s", "nvcc_s",
+                                                        "host_build_s", "first_s", "steady_s",
+                                                        "process_s")}}
+
+    counts = (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches,
+              block_spmm.tile_matvec.launches)
+    check(counts == (0, 0, 0), f"the seven studies launch neither K2 nor K3: {counts}")
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    print("tools11: " + json.dumps(rec, default=float), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -3008,6 +3145,7 @@ def main() -> int:
     scale_tile_record, scale_quant_launches = phase_scale(dev, bundle)
     cli_launches = phase_cli_dataset()
     tools_launches = phase_tools(dev)
+    phase_studies(dev)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is
 compiled at first use with ``nvcc`` into a shared library under
-``gcn_recommendation_tpu_torch/_build/`` (git-ignored), named by a hash
-of the source and the flags so a changed source rebuilds.  The library
-is loaded with ``ctypes``; every pointer and the stream pass as
-``c_void_p``.  Nothing here runs at import time: a machine without
+``gcn_recommendation_tpu_torch/_build/`` (git-ignored), or under the
+directory that ``GCN_TORCH_BUILD_DIR`` names when this module is first
+imported, named by a hash of the source and the flags so a changed
+source rebuilds.  The library is loaded with ``ctypes``; every pointer
+and the stream pass as ``c_void_p``.  Nothing here runs at import time: a machine without
 ``nvcc`` imports this module and never calls it.
 """
 
@@ -22,7 +23,9 @@ from typing import Dict, Iterable, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# read once, at import: a process that times a cold build points it at a
+# fresh directory, where no library can have been built before
+BUILD_DIR = os.environ.get("GCN_TORCH_BUILD_DIR") or os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -140,7 +140,10 @@ def propagate_coo(
 # Widths up to this use a sum of width-1 gathers instead of one
 # [nb, width, d] gather.  The JAX package's value (chosen there for the
 # TPU's tile padding), kept so that both packages sum each row in the same
-# order; no crossover between the two forms was measured on this card.
+# order.  On this card tools/exp_min_width.py found no crossover above it:
+# width-1 gathers summed beat the one gather at every width it measured,
+# 8 to 64 (0.72 against 0.91 ns a gathered row at width 8; NVIDIA H100
+# 80GB HBM3, 700 W).  Raising the value is a question for the whole step.
 COLSUM_MAX_WIDTH = 4
 
 

@@ -29,6 +29,11 @@ TOOL_MODULES = ("utils.timing", "tools.calibrate_regimes", "tools.exp_serve",
                 "tools.exp_step_profile", "tools.exp_topk_mask", "tools.exp_hub_threshold",
                 "tools.exp_min_width", "tools.exp_tile_spmm", "tools.card_checks",
                 "tools.multiproc_dryrun", "tools.real_data_dryrun")
+# the studies (bf16 accuracy, SpMM forms, gather rates, tile density, block parts,
+# cold-process cost)
+STUDY_MODULES = ("tools.exp_bf16_accuracy", "tools.exp_spmm_variants", "tools.exp_dim_split",
+                 "tools.exp_knee_d192", "tools.exp_block_density", "tools.exp_block_matmul",
+                 "tools.exp_compile_cost")
 
 
 def test_port_lists_its_modules():
@@ -42,7 +47,8 @@ def test_port_lists_its_modules():
               "tools.exp_quant_call", "tools.exp_daemon_backlog", "data.native_ext",
               "tools.exp_gather_knee", "tools.exp_scale", "ops", "graph", "data",
               "data.parquet", "tools.run_experiments", "tools.run_regime_grids",
-              "tools.regime_comparison", "tools.exp_parquet_read", *TOOL_MODULES):
+              "tools.regime_comparison", "tools.exp_parquet_read", *TOOL_MODULES,
+              *STUDY_MODULES):
         assert f"{PKG}.{m}" in mods
 
 
@@ -192,6 +198,34 @@ def test_tools_default_to_the_card_and_raise_without_cuda(tmp_path):
             tool.main(argv)
 
 
+def test_studies_default_to_the_card_and_raise_without_cuda():
+    """Every study that takes a device time runs on ``cuda``
+    unless ``--device cpu`` is given; without a card it raises before it
+    measures anything (``exp_block_density`` is host-only)."""
+    _no_card()
+    from gcn_recommendation_tpu_torch.tools import (
+        exp_bf16_accuracy,
+        exp_block_matmul,
+        exp_compile_cost,
+        exp_dim_split,
+        exp_knee_d192,
+        exp_spmm_variants,
+    )
+
+    small = ["--num_users", "40", "--num_items", "30", "--num_brands", "4"]
+    calls = [
+        (exp_bf16_accuracy, small),
+        (exp_spmm_variants, small),
+        (exp_dim_split, ["--rows", "10", "--rows_per_iter", "10"]),
+        (exp_knee_d192, ["--rows", "10", "--rows_per_iter", "10"]),
+        (exp_block_matmul, ["--n_blocks", "2", "--configs", "1x2"]),
+        (exp_compile_cost, small + ["--variant", "fused"]),
+    ]
+    for tool, argv in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(argv)
+
+
 def test_cli_without_device_raises_without_cuda(tmp_path):
     _no_card()
     from gcn_recommendation_tpu_torch import cli
@@ -216,7 +250,7 @@ def test_daemon_modules_hold_no_jax_import_in_their_source():
                 "data/loader.py", "data/synthetic.py", "tools/run_experiments.py",
                 "tools/run_regime_grids.py", "tools/regime_comparison.py",
                 "tools/exp_parquet_read.py",
-                *(m.replace(".", "/") + ".py" for m in TOOL_MODULES)):
+                *(m.replace(".", "/") + ".py" for m in TOOL_MODULES + STUDY_MODULES)):
         with open(os.path.join(REPO, PKG, rel)) as f:
             text = f.read()
         assert not re.search(r"^\s*(import|from)\s+(jax|gcn_recommendation_tpu)(\.|\s)", text,
