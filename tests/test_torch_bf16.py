@@ -33,6 +33,7 @@ from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.models.convert import params_from_jax
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 B = 128
 KW = dict(embedding_dim=16, n_layers=3, batch_size=B, compute_dtype="bfloat16")

@@ -34,7 +34,7 @@ from gcn_recommendation_tpu_torch.graph.build import (
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
-from test_torch_spmm import GRAPHS, _inputs
+from test_torch_spmm import GRAPHS, _inputs, one_thread  # noqa: F401  (autouse: one thread)
 
 B = 128
 

@@ -35,6 +35,7 @@ import torch
 from gcn_recommendation_tpu.cli import build_parser as jax_build_parser
 from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ("train", "test", "recommend", "serve")

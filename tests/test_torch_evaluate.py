@@ -25,6 +25,7 @@ from gcn_recommendation_tpu_torch.train.evaluate import (
     dedup_eval_users,
     evaluate_embeddings,
 )
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 NU, NI, D, K = 90, 60, 8, 10
 

@@ -35,6 +35,7 @@ from gcn_recommendation_tpu.ops import block_spmm as jbs
 from gcn_recommendation_tpu_torch.ops import block_spmm
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles as exp
 from gcn_recommendation_tpu_torch.tools import exp_tile_variants as exp_variants
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 N_BLOCKS, D, M, R_BLOCKS = 9, 16, 8, 4
 CASES = [(1, "float32"), (1, "bfloat16"), (8, "float32"), (8, "bfloat16")]

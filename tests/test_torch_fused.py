@@ -35,7 +35,7 @@ from gcn_recommendation_tpu_torch.models.convert import params_from_jax
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.ops.block_spmm import TiledDeviceGraph
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
-from test_torch_spmm import GRAPHS, _inputs
+from test_torch_spmm import GRAPHS, _inputs, one_thread  # noqa: F401  (autouse: one thread)
 
 B = 128
 

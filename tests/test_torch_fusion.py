@@ -52,6 +52,7 @@ from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 from test_torch_serve import assert_same_topk
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 B = 256
 D = 16

@@ -43,6 +43,7 @@ from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.data.parquet import read_columns
 from gcn_recommendation_tpu_torch.tools import regime_comparison as rc
 from gcn_recommendation_tpu_torch.tools import run_experiments, run_regime_grids
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_GRIDS = ("exp_synth", "exp_synth_dense", "exp_synth_zno", "exp_synth_sport")

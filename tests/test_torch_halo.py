@@ -39,6 +39,7 @@ from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.build import build_normalized_adjacency
 from gcn_recommendation_tpu_torch.parallel import drivers, halo
 from helpers import dense_from_graph
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 CFG = dict(embedding_dim=16, n_layers=2, batch_size=128)
 BRAND_CFG = dict(CFG, brand_loss=True)

@@ -8,6 +8,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "gcn_recommendation_tpu_torch"

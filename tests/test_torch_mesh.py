@@ -30,6 +30,7 @@ from gcn_recommendation_tpu_torch.core import distributed, mesh
 from gcn_recommendation_tpu_torch.ops import quant
 from gcn_recommendation_tpu_torch.ops.topk import merge_topk_candidates
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 _MESH_ERROR = r"mesh \(\d+, \d+\) needs \d+ devices, have \d+"
 

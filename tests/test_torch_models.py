@@ -19,6 +19,7 @@ from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.models.convert import params_from_jax
 from gcn_recommendation_tpu_torch.models.lightgcn import xavier_uniform
 from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from gcn_recommendation_tpu.graph.build import normalize_sym as jax_normalize_sy
 from gcn_recommendation_tpu_torch.data import native_ext
 from gcn_recommendation_tpu_torch.data import prepare
 from gcn_recommendation_tpu_torch.graph import build
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,6 +47,20 @@ def jax_lib():
         jax_native._load_failed = False
     assert jax_native.available(), "the JAX package's native library does not load"
     return jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_lib():
+    """The port's library for this module's tests, which test the native
+    path itself: a process whose earlier load failed (its numpy path runs
+    for the rest of its life) retries the load here, and gets its own state
+    back after the module."""
+    saved = native_ext._lib, native_ext._load_failed
+    if not native_ext.available():
+        native_ext._load_failed = False
+    assert native_ext.available(), "the port's native library does not load"
+    yield native_ext
+    native_ext._lib, native_ext._load_failed = saved
 
 
 def _reference_kcore(users, items, k):

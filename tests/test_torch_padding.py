@@ -41,6 +41,7 @@ from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 from test_torch_tiles import port_graph
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 U, I, NB = 301, 203, 21   # no size divides 8
 D = 16

@@ -45,6 +45,7 @@ from gcn_recommendation_tpu_torch.ops.topk import MASK_VALUE
 from gcn_recommendation_tpu_torch.parallel import drivers
 from gcn_recommendation_tpu_torch.train.evaluate import evaluate_embeddings
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 CFG = dict(embedding_dim=16, n_layers=2, batch_size=128)
 ND_CFG = dict(embedding_dim=16, n_layers=2, batch_size=64)

@@ -28,6 +28,7 @@ from gcn_recommendation_tpu_torch.data import parquet
 from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
 from gcn_recommendation_tpu_torch.data.parquet import read_columns, write_columns
 from test_torch_synthetic import _assert_same_bundle
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

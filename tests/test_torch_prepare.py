@@ -22,6 +22,7 @@ from gcn_recommendation_tpu import cli as jax_cli
 from gcn_recommendation_tpu.data import prepare as jax_prepare
 from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.data import prepare
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 FILES = ("train.parquet", "test.parquet", "item_brand.parquet", "stats.json",
          "item_embeddings.npy")

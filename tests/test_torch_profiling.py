@@ -22,6 +22,7 @@ from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import profiling
 from gcn_recommendation_tpu_torch.utils.profiling import StepTimer, trace
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 
 @pytest.mark.parametrize("sync_on", [

@@ -14,6 +14,7 @@ import torch
 
 from gcn_recommendation_tpu.ops import quant as jquant
 from gcn_recommendation_tpu_torch.ops import quant
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 
 def _rows(n, d, seed):

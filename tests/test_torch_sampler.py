@@ -20,6 +20,7 @@ from gcn_recommendation_tpu_torch.data.sampler import (
     positive_keys,
     sample_negatives,
 )
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 NUM_ITEMS = 10
 

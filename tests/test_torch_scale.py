@@ -46,6 +46,7 @@ from gcn_recommendation_tpu_torch.tools import exp_scale
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from test_torch_serve import assert_same_topk
 from test_torch_tiles import port_graph
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 D, LAYERS, B, STEPS = 256, 4, 256, 5
 

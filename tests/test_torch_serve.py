@@ -30,7 +30,7 @@ from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.models.convert import params_from_jax
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.utils.checkpoint import load_params, save_params
-from test_torch_spmm import assert_same_graph
+from test_torch_spmm import assert_same_graph, one_thread  # noqa: F401  (autouse: one thread)
 
 TOL = 1e-5
 

@@ -38,6 +38,7 @@ from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.server import Dispatcher, RecommendServer, _Pending
 from gcn_recommendation_tpu_torch.utils.checkpoint import save_params
 from test_torch_serve import assert_same_topk
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 HTTP_TIMEOUT = 10  # seconds, every call
 ROUNDED_ATOL = 1e-4 + 1e-9  # one unit of the 4th digit

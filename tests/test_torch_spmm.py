@@ -6,6 +6,8 @@ f32 holds to 1e-5 (same products, other summation order); bf16 storage
 to 2e-2 (inputs and per-bucket outputs rounded to 8 mantissa bits).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +45,23 @@ def _inputs(spec, seed=7):
         dense_threshold=spec["dense_threshold"],
     )
     return (u, i, spec["nu"], spec["ni"], spec["nb"]), kw
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread, and ``OMP_NUM_THREADS=1`` for the processes
+    the tests start: the test workers share the cores, and the tests' steps
+    are many small ops that would otherwise wait on each other.  The port's
+    other test modules import it from here (autouse, module scope)."""
+    n, omp = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if omp is None:
+        del os.environ["OMP_NUM_THREADS"]
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 @pytest.fixture(scope="module", params=sorted(GRAPHS))

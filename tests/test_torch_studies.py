@@ -16,7 +16,6 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from gcn_recommendation_tpu.data import synthetic as jsyn
@@ -31,19 +30,10 @@ from gcn_recommendation_tpu_torch.tools import (
     exp_knee_d192,
     exp_spmm_variants,
 )
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--num_users", "300", "--num_items", "200", "--num_brands", "12"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tools' loops are many small ops: one intra-op thread keeps them
-    from waiting on each other when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_tool(name):

@@ -13,7 +13,7 @@ from gcn_recommendation_tpu.data import synthetic as jsyn
 from gcn_recommendation_tpu.data.loader import load_preprocessed_data as jax_load
 from gcn_recommendation_tpu_torch.data import synthetic as syn
 from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
-from test_torch_spmm import assert_same_graph
+from test_torch_spmm import assert_same_graph, one_thread  # noqa: F401  (autouse: one thread)
 
 LATENT_CASES = {
     "gaussian": dict(),

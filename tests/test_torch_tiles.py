@@ -36,6 +36,7 @@ from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.ops import block_spmm
 from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
 from helpers import dense_from_graph
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 MIN_FILL, TB = 8, 4
 

@@ -18,8 +18,10 @@ something deterministic:
 * ``exp_hub_threshold``: hubs and padded rows equal JAX's at each
   threshold, the forward equals the COO oracle;
 * ``exp_min_width``: every form equals the fused one;
-* ``exp_tile_spmm``: the partition equals JAX's, the errors against ELL
-  stay within the tile tests' limits;
+* ``exp_tile_spmm``: the partition equals JAX's (bit for bit on one graph,
+  to rtol 1e-6 in the tile values on the graph each side's ETL built, with
+  either side on its numpy ETL path), the errors against ELL stay within
+  the tile tests' limits;
 * ``card_checks`` passes on the plain version.
 """
 
@@ -36,11 +38,13 @@ import numpy as np
 import pytest
 import torch
 
+from gcn_recommendation_tpu.data import native_ext as jax_native_ext
 from gcn_recommendation_tpu.data.synthetic import synthetic_bundle as jax_bundle
 from gcn_recommendation_tpu.graph.build import build_normalized_adjacency as jax_build
 from gcn_recommendation_tpu.graph.tiles import partition_tiles as jax_partition
 from gcn_recommendation_tpu.ops.topk import masked_topk as jax_masked_topk
 from gcn_recommendation_tpu_torch.config import Config
+from gcn_recommendation_tpu_torch.data import native_ext as port_native_ext
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.models import get_model
@@ -59,19 +63,11 @@ from gcn_recommendation_tpu_torch.tools import (
 )
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 from gcn_recommendation_tpu_torch.utils import timing
+from test_torch_spmm import assert_same_graph, one_thread  # noqa: F401  (autouse: one thread)
+from test_torch_tiles import port_graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--num_users", "300", "--num_items", "200", "--num_brands", "12"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The tools' steps are thousands of small ops: one intra-op thread keeps
-    them from waiting on each other when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_tool(name):
@@ -289,18 +285,43 @@ def test_exp_min_width_times_every_form():
 TILE = ["--num_users", "1500", "--num_items", "800", "--num_brands", "40"]
 
 
-def test_exp_tile_spmm_partition_is_jax_s_and_errors_stay_in_the_tile_limits():
-    res, text = _run(exp_tile_spmm.main, TILE + ["--min_fills", "16", "--chain", "1",
-                                                 "--device", "cpu"])
+def _tile_partition_against_jax():
+    """exp_tile_spmm's graph and its tile partition held against JAX's.  The
+    host ETL has a native and a numpy path on each side, which agree to about
+    2 ULP in the weights, not bitwise: the graphs are held to each other with
+    the structure exact and the weights to rtol 1e-6, the partition of one
+    graph on both sides bit for bit, and the partition of the port's own
+    graph with its tile values to rtol 1e-6.  Returns the last."""
     jb = jax_bundle(num_users=1500, num_items=800, num_brands=40, mean_degree=28.0, core=8,
                     seed=42, style="latent", pop_zipf=0.6, deg_sigma=1.0, spectrum=1.0,
                     split="rank", rank_key="taste")
+    g = exp_tile_spmm.bench_bundle(1500, 800, 40).graph
+    assert_same_graph(g, jb.graph)
     jp = jax_partition(jb.graph, min_fill=16)
-    p = partition_tiles(exp_tile_spmm.bench_bundle(1500, 800, 40).graph, min_fill=16)
-    assert p.covered_edges == jp.covered_edges and p.n_row_blocks == jp.n_row_blocks
-    np.testing.assert_array_equal(p.tile_col, jp.tile_col)
-    np.testing.assert_array_equal(p.step_row, jp.step_row)
-    np.testing.assert_array_equal(p.tile_a, jp.tile_a)
+    same, p = (partition_tiles(x, min_fill=16) for x in (port_graph(jb.graph), g))
+    for q in (same, p):
+        assert q.covered_edges == jp.covered_edges and q.n_row_blocks == jp.n_row_blocks
+        np.testing.assert_array_equal(q.tile_col, jp.tile_col)
+        np.testing.assert_array_equal(q.step_row, jp.step_row)
+    np.testing.assert_array_equal(same.tile_a, jp.tile_a)
+    np.testing.assert_allclose(p.tile_a, jp.tile_a, rtol=1e-6)
+    return p
+
+
+@pytest.mark.parametrize("side", [jax_native_ext, port_native_ext], ids=["jax", "port"])
+def test_exp_tile_spmm_partition_when_one_side_takes_its_numpy_etl(monkeypatch, side):
+    # a test worker whose native build failed (or lost a race to load it)
+    # runs the numpy path for the rest of its life, the other side may not
+    monkeypatch.setattr(side, "_lib", None)
+    monkeypatch.setattr(side, "_load_failed", True)
+    assert not side.available()
+    _tile_partition_against_jax()
+
+
+def test_exp_tile_spmm_partition_is_jax_s_and_errors_stay_in_the_tile_limits():
+    res, text = _run(exp_tile_spmm.main, TILE + ["--min_fills", "16", "--chain", "1",
+                                                 "--device", "cpu"])
+    p = _tile_partition_against_jax()
     cases = {c["dtype"]: c for c in res["cases"]}
     assert set(cases) == {"float32", "bfloat16"}
     assert all(c["tiles"] == p.num_tiles and c["covered"] == p.covered_edges

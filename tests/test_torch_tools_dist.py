@@ -12,21 +12,10 @@ import contextlib
 import io
 
 import pytest
-import torch
 
 from gcn_recommendation_tpu_torch.tools import multiproc_dryrun, real_data_dryrun
 from test_torch_prepare import _raw_dump, _write_jsonl
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the debug training's small ops do not wait on
-    each other when test workers share the cores (the ranks of
-    ``multiproc_dryrun`` set their own)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 
 def _run(main, argv):

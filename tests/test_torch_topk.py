@@ -11,6 +11,7 @@ import torch
 
 from gcn_recommendation_tpu.ops import topk as jtopk
 from gcn_recommendation_tpu_torch.ops import topk
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 
 def _case(b, n, f, seed):

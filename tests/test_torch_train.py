@@ -42,6 +42,7 @@ from gcn_recommendation_tpu_torch.models.convert import (
     params_from_jax,
 )
 from gcn_recommendation_tpu_torch.models.lightgcn import LightGCN
+from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
 PARAM_KEYS = LightGCN.param_keys
 from gcn_recommendation_tpu_torch.ops import spmm
