@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: serving, training (both model
 families), the tile experiment, row padding, the HTTP serving daemon, the
-mesh, the propagation layouts, the scaled configuration and the CLI on an
-on-disk dataset.
+mesh, the propagation layouts, the scaled configuration, the CLI on an
+on-disk dataset, the tools, and the review-dump recipes from ``prepare`` to
+an int8 request.
 
     python3 chip_smoke.py
 
@@ -219,7 +220,26 @@ fails:
    ``exp_block_matmul`` at 16 x 384 tiles (its f32 and bf16 variants held
    against the CPU's f32 formula on a small case: 1e-4 and 2e-2 of the
    largest value) and ``exp_compile_cost`` for the fused variant in a
-   fresh process (``--keep_build``; finite losses).
+   fresh process (``--keep_build``; finite losses);
+17. the review-dump recipes (``review_dumps:`` line), in a child process
+   where ``import pandas`` fails, through ``cli.main``: seeded JSONL dumps
+   in each recipe's schema (``write_review_dump``: rating and time ties,
+   rows the recipe drops, items without metadata or ``embd``, malformed
+   lines), ``amazon_books`` and ``amazon_books_emb`` at the books bundle's
+   scale (50,000 users x 20,000 items x ~28 after the K-core filter, 10%
+   more users and items for it to remove), the other three at a tenth;
+   ``prepare`` of all five, each dataset checked (one test row a user, the
+   K-core kept, ``stats.json`` equal to the files, ``data/loader.py``
+   reading them, every line counted); on ``amazon_books``, ``train
+   --tile_spmm --tile_min_fill 16`` 1 epoch (a non-empty partition; K3 6 a
+   step plus 3 for the validation, counted from 0; the first call of each
+   pass held against plain), ``test``,
+   ``recommend --int8`` for 1, 7 and 64 users (K2 once on load and once a
+   request, each call bit-equal to plain) and int8 top-20 overlapping f32
+   by >= 0.9; on ``amazon_books_emb``, ``train --model_name
+   LightGCN_Fusion --use_pretrained_emb`` 1 epoch at batch 65,536 on the
+   written ``item_embeddings.npy``; ``real_data_dryrun --recipe
+   steam_emb`` on the steam dump (exit 0); no pandas module loaded.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -251,7 +271,8 @@ import torch
 
 from gcn_recommendation_tpu_torch import cli
 from gcn_recommendation_tpu_torch.config import Config
-from gcn_recommendation_tpu_torch.data import native_ext, parquet, synthetic
+from gcn_recommendation_tpu_torch.data import native_ext, parquet, prepare, synthetic
+from gcn_recommendation_tpu_torch.data.loader import load_preprocessed_data
 from gcn_recommendation_tpu_torch.data.sampler import (
     epoch_batches,
     membership_arrays,
@@ -3113,6 +3134,367 @@ def phase_studies(dev):
     print("tools11: " + json.dumps(rec, default=float), flush=True)
 
 
+# ------------------------------------------------------ phase 17: review dumps
+# recipe: (core users, core items, brand or category labels); every core user
+# and item keeps at least the recipe's core, about 28 interactions a user
+# (the books bundle's scale, bench.py:35-38, for the two books recipes the
+# path trains on; a tenth of it for the other three)
+REVIEW_SCALE = {
+    "amazon_books": (50_000, 20_000, 2_000),
+    "amazon_books_emb": (50_000, 20_000, 2_000),
+    "amazon_books_senti": (5_000, 2_000, 200),
+    "amazon_sport_emb": (5_000, 2_000, 200),
+    "steam_emb": (5_000, 2_000, 200),
+}
+REVIEW_MEAN_DEGREE = 28.0
+REVIEW_CLUSTERS = 50          # taste clusters: 70% of a user's own picks inside its own
+REVIEW_EMBD = 64              # the embd vectors' width
+REVIEW_REQUESTS = (1, 7, 64)  # users of each recommend --int8 request
+REVIEW_FUSION_BATCH = 65_536  # LightGCN_Fusion: one epoch of 20 steps
+# ids numbered by first appearance in a dump leave ~21 edges in an average
+# 128 x 128 block of this graph: no tile reaches the default min_fill of 64
+# (the trainer falls back to ELL), so the path asks for 16
+REVIEW_TILE_MIN_FILL = 16
+REVIEW_TIMEOUT_S = 480
+REVIEW_MALFORMED = ('{"user_id": "U0", "parent_asin": "I0", "rat', "[1, 2]", "null")
+REVIEW_CHILD = ("import sys\n"
+                "sys.modules['pandas'] = None  # any import of pandas now raises ImportError\n"
+                "import chip_smoke\n"
+                "sys.exit(chip_smoke.review_dumps_child())\n")
+
+
+def _review_rows(rng, n_users: int, n_items: int, core: int):
+    """(users, items) of a review dump, shuffled.  The core: each item gets
+    ``core`` rows from users of its cluster, each user ``core`` or more
+    picks (70% inside its cluster), popularity lognormal; then 10% more
+    users with fewer than ``core`` rows each, over the core items and 10%
+    more items that only they touch, for the K-core filter to remove."""
+    cu = rng.permutation(n_users) % REVIEW_CLUSTERS
+    ci = rng.permutation(n_items) % REVIEW_CLUSTERS
+    pop = rng.lognormal(0.0, 1.0, n_items)
+    users_of = [np.flatnonzero(cu == c) for c in range(REVIEW_CLUSTERS)]
+    items_of = [np.flatnonzero(ci == c) for c in range(REVIEW_CLUSTERS)]
+    extra = max(0.0, REVIEW_MEAN_DEGREE - core * n_items / n_users - core)
+    own = core + rng.poisson(extra, n_users)
+    uu = np.repeat(np.arange(n_users), own)
+    ii = rng.choice(n_items, len(uu), p=pop / pop.sum())
+    inside = rng.random(len(uu)) < 0.7
+    for c in range(REVIEW_CLUSTERS):
+        m = inside & (cu[uu] == c)
+        w = pop[items_of[c]]
+        ii[m] = rng.choice(items_of[c], int(m.sum()), p=w / w.sum())
+    uu = np.concatenate([uu, *(rng.choice(users_of[c], core * len(items_of[c]))
+                               for c in range(REVIEW_CLUSTERS))])
+    ii = np.concatenate([ii, *(np.repeat(items_of[c], core) for c in range(REVIEW_CLUSTERS))])
+    n_wu, n_wi = n_users // 10, n_items // 10
+    weak = rng.integers(1, min(core, 16), n_wu)
+    wu = n_users + np.repeat(np.arange(n_wu), weak)
+    wi = np.where(rng.random(len(wu)) < 0.7, n_items + rng.integers(0, n_wi, len(wu)),
+                  rng.integers(0, n_items, len(wu)))
+    users, items = np.concatenate([uu, wu]), np.concatenate([ii, wi])
+    order = rng.permutation(len(users))
+    return users[order], items[order], n_users + n_wu, n_items + n_wi
+
+
+def write_review_dump(recipe: str, directory: str, seed: int = 0):
+    """Review and metadata JSONL in ``recipe``'s schema at its
+    ``REVIEW_SCALE``, from ``seed``: ratings 1-5 and day-stamped times with
+    ties, about 5% more rows that the recipe drops (a missing rating, a
+    negative sentiment, a game not recommended), ~5% of items without
+    metadata and ~5% without ``embd``, a few malformed lines.  Returns
+    (review path, metadata path, review lines)."""
+    n_users, n_items, n_labels = REVIEW_SCALE[recipe]
+    core = prepare.RECIPES[recipe].default_core
+    rng = np.random.default_rng(seed)
+    users, items, all_users, all_items = _review_rows(rng, n_users, n_items, core)
+    n_drop = len(users) // 20
+    drop_at = rng.choice(len(users) + n_drop, n_drop, replace=False)
+    keep_at = np.setdiff1d(np.arange(len(users) + n_drop), drop_at)
+    u = np.empty(len(users) + n_drop, np.int64)
+    i = np.empty_like(u)
+    u[keep_at], i[keep_at] = users, items
+    u[drop_at], i[drop_at] = rng.integers(0, all_users, n_drop), rng.integers(0, all_items, n_drop)
+    dropped = np.zeros(len(u), bool)
+    dropped[drop_at] = True
+    rating = rng.choice(5, len(u), p=[0.05, 0.05, 0.15, 0.3, 0.45]) + 1
+    day = rng.integers(1_500_000_000 // 86_400, 1_700_000_000 // 86_400, len(u)) * 86_400
+    emb_review = recipe in ("amazon_books_emb", "amazon_sport_emb")
+    lines = []
+    for uid, iid, r, t, drop in zip(u.tolist(), i.tolist(), rating.tolist(), day.tolist(),
+                                    dropped.tolist()):
+        if recipe == "steam_emb":
+            lines.append(f'{{"user_id": "U{uid:07d}", "item_id": "I{iid:08d}", '
+                         f'"timestamp": {t}, "recommanded": {"false" if drop else "true"}}}')
+        elif emb_review:
+            lines.append(f'{{"user_id": "U{uid:07d}", "item_id": "I{iid:08d}", "rating": {r}.0, '
+                         f'"sentiment": "{"negative" if drop else "positive"}"}}')
+        else:
+            lines.append(f'{{"user_id": "U{uid:07d}", "parent_asin": "I{iid:08d}", '
+                         f'"rating": {"null" if drop else f"{r}.0"}, "timestamp": {t}}}')
+    lines.extend(REVIEW_MALFORMED)
+    reviews = os.path.join(directory, f"{recipe}_reviews.jsonl")
+    with open(reviews, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    label = rng.integers(0, n_labels, (all_items, 2))
+    has_meta = rng.random(all_items) >= 0.05
+    has_embd = rng.random(all_items) >= 0.05
+    unknown = rng.random(all_items) < 0.03
+    embd_text = io.StringIO()
+    if recipe != "amazon_books" and recipe != "amazon_books_senti":
+        np.savetxt(embd_text, rng.standard_normal((all_items, REVIEW_EMBD)), fmt="%.4f",
+                   delimiter=",")
+    embd_rows = embd_text.getvalue().splitlines()
+    meta_lines = []
+    for iid in np.flatnonzero(has_meta).tolist():
+        a, b = label[iid].tolist()
+        key = f'"I{iid:08d}"'
+        embd = f', "embd": [{embd_rows[iid]}]' if embd_rows and has_embd[iid] else ""
+        if recipe == "amazon_books":
+            author = "null" if unknown[iid] else f'{{"name": "A{a}"}}'
+            meta_lines.append(f'{{"parent_asin": {key}, "author": {author}}}')
+        elif recipe == "amazon_books_senti":
+            details = "{}" if unknown[iid] else f'{{"Brand": "B{a}"}}'
+            meta_lines.append(f'{{"parent_asin": {key}, "details": {details}}}')
+        elif recipe == "steam_emb":
+            meta_lines.append(f'{{"item_id": {key}, "genres": ["G{a}"], '
+                              f'"tags": {{"T{b}": 3}}{embd}}}')
+        else:
+            cats = '["Root"]' if unknown[iid] else f'["Root", "C{a}", "C{b}"]'
+            meta_key = "item_id" if recipe == "amazon_books_emb" else "parent_asin"
+            meta_lines.append(f'{{"{meta_key}": {key}, "categories": {cats}{embd}}}')
+    meta_lines.append('{"item_id": "I2", "categor')
+    meta = os.path.join(directory, f"{recipe}_meta.jsonl")
+    with open(meta, "w") as f:
+        f.write("\n".join(meta_lines) + "\n")
+    return reviews, meta, len(lines)
+
+
+def _check_review_dataset(recipe: str, out: str):
+    """The written files: one test row per user, the K-core kept, stats.json
+    equal to the parquet files, and ``data/loader.py`` reading them back.
+    Returns (stats, the loaded bundle)."""
+    with open(os.path.join(out, "stats.json")) as f:
+        stats = json.load(f)
+    tr = parquet.read_columns(os.path.join(out, "train.parquet"))
+    te = parquet.read_columns(os.path.join(out, "test.parquet"))
+    ib = parquet.read_columns(os.path.join(out, "item_brand.parquet"))
+    nu, ni, nb = stats["num_users"], stats["num_items"], stats["num_brands"]
+    check(np.array_equal(np.sort(te["user_idx"]), np.arange(nu)),
+          f"{recipe}: every one of {nu:,} users has exactly one test row")
+    users = np.concatenate([tr["user_idx"], te["user_idx"]])
+    items = np.concatenate([tr["item_idx"], te["item_idx"]])
+    core = prepare.RECIPES[recipe].default_core
+    uc, ic = np.bincount(users, minlength=nu), np.bincount(items, minlength=ni)
+    check(len(uc) == nu and len(ic) == ni and uc.min() >= core and ic.min() >= core,
+          f"{recipe}: every kept user and item has >= {core} interactions "
+          f"(least {uc.min()} and {ic.min()})")
+    check(all(c.dtype == np.int32 for c in (*tr.values(), *te.values(), *ib.values()))
+          and nb == len(np.unique(ib["brand_idx"])) == (ib["brand_idx"].max() + 1 if nb else 0)
+          and (ib["item_idx"].max() < ni if len(ib["item_idx"]) else True),
+          f"{recipe}: stats.json ({nu:,} users, {ni:,} items, {nb:,} brands) agrees "
+          f"with the parquet files ({len(users):,} interactions, int32)")
+    bundle = load_preprocessed_data(out, use_brand=True, verbose=False)
+    check((bundle.num_users, bundle.num_items, bundle.num_brands) == (nu, ni, nb)
+          and len(bundle.train) + len(bundle.val) == len(tr["user_idx"])
+          and len(bundle.test) == nu and bundle.graph.nnz > 0,
+          f"{recipe}: data/loader.py reads the files back ({bundle.graph.nnz:,} nonzeros)")
+    return stats, bundle
+
+
+def _top_items(text: str):
+    """{user: [items]} of a recommend command's lines."""
+    return {int(u): [int(p.split(":")[0]) for p in pairs.split()]
+            for u, pairs in re.findall(r"^user (\d+): (.*)$", text, re.M)}
+
+
+def review_dumps_child() -> int:
+    """Phase 17's body, run by ``phase_review_dumps`` in a process where
+    ``import pandas`` fails: the five recipes' dumps through ``prepare``,
+    the ``amazon_books`` dataset trained on K3 and served int8 on K2, the
+    ``amazon_books_emb`` dataset trained as LightGCN_Fusion on its
+    embeddings, ``real_data_dryrun`` on the steam dump.  Prints one
+    ``review_dumps:`` line."""
+    try:
+        import pandas  # noqa: F401
+        blocked = False
+    except ImportError:
+        blocked = True
+    check(blocked, "review dumps: pandas cannot be imported in this process")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reviews_")
+    rec = {"recipes": {}}
+    data = {}
+    try:
+        for n, recipe in enumerate(sorted(REVIEW_SCALE)):
+            t0 = time.perf_counter()
+            rp, mp, n_lines = write_review_dump(recipe, tmp, seed=n)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            text = _cli(["prepare", "--recipe", recipe, "--review_path", rp, "--meta_path", mp,
+                         "--output_dir", os.path.join(tmp, recipe)])
+            prepare_s = time.perf_counter() - t0
+            r = prepare.RECIPES[recipe]
+            out = os.path.join(tmp, recipe, f"processed_data_{r.default_core}{r.out_suffix}")
+            stats, bundle = _check_review_dataset(recipe, out)
+            malformed, nondict = map(int, re.search(
+                r"skipped (\d+) malformed and (\d+) non-object", text).groups())
+            loaded = int(re.search(r"Loaded (\d+) interactions", text).group(1))
+            dropped = int(re.search(r"Dropped (\d+) review records", text).group(1))
+            kept = int(re.search(r"Filtered to (\d+) interactions", text).group(1))
+            check(malformed + nondict == len(REVIEW_MALFORMED) and loaded + dropped
+                  + malformed + nondict == n_lines,
+                  f"{recipe}: every line of the dump counted ({n_lines:,}: {loaded:,} loaded, "
+                  f"{dropped:,} dropped, {malformed + nondict} malformed)")
+            rec["recipes"][recipe] = {
+                "lines": n_lines, "rows_read": loaded + dropped, "rows_dropped": dropped,
+                "interactions_kept": kept, "users": stats["num_users"],
+                "items": stats["num_items"], "brands": stats["num_brands"],
+                "embeddings": os.path.exists(os.path.join(out, "item_embeddings.npy")),
+                "write_s": round(write_s, 2), "prepare_s": round(prepare_s, 2)}
+            data[recipe] = (out, bundle)
+            print(f"review_dumps {recipe}: " + json.dumps(rec["recipes"][recipe]), flush=True)
+            if recipe != "steam_emb":  # the drill below reads the steam dump
+                os.remove(rp)
+                os.remove(mp)
+
+        # amazon_books: one epoch on K3, test, int8 requests on K2
+        books, bundle = data["amazon_books"]
+        common = ["--processed_dir", books, "--output_root", os.path.join(tmp, "out")]
+        k3_calls = {}
+
+        def keep_k3(args, result):  # (emb, tiles): the first call of each pass on its tiles
+            key = (id(args[1]), "forward" if args[0].requires_grad else "backward")
+            if key not in k3_calls:
+                k3_calls[key] = (args[1], args[0].detach().clone(), result.detach().clone())
+
+        block_spmm.tile_matvec.launches = 0
+        t0 = time.perf_counter()
+        with _recording(block_spmm, "_tile_matvec_cuda", keep_k3):
+            text = _cli(["train", *common, "--epochs", "1", "--val_interval", "1",
+                         "--tile_spmm", "--tile_min_fill", str(REVIEW_TILE_MIN_FILL)])
+        train_s = time.perf_counter() - t0
+        k3 = block_spmm.tile_matvec.launches
+        steps = -(-len(bundle.train) // Config().batch_size)
+        partition = re.search(r"CUDA tile partition — (\d+) tiles cover ([\d,]+)/([\d,]+) edges",
+                              text)
+        check(partition is not None,
+              f"amazon_books: a tile partition at min_fill {REVIEW_TILE_MIN_FILL}")
+        tiles_n, covered, nnz = (int(x.replace(",", "")) for x in partition.groups())
+        check(k3 == 6 * steps + 3,
+              f"amazon_books train --tile_spmm 1 epoch: K3 launched {k3}x = 6 a step x "
+              f"{steps} steps + 3 for the validation forward")
+        k3_checks = []
+        for (_, pass_), (tiles, emb, k_out) in k3_calls.items():
+            what = (f"the amazon_books partition of train --tile_spmm, {pass_} "
+                    f"({tiles.num_tiles} tiles, emb {list(emb.shape)})")
+            k3_checks.append({
+                "pass": pass_, "layout": tiles.layout, "tiles": tiles.num_tiles,
+                "emb": list(emb.shape),
+                "max_abs_diff_command": _check_tiles(tiles, emb, what + ", the command's output",
+                                                     k=k_out),
+                "max_abs_diff_relaunched": _check_tiles(tiles, emb, what + ", relaunched")})
+        check({c["pass"] for c in k3_checks} == {"forward", "backward"},
+              "amazon_books: K3's inputs of both passes recorded and held against plain")
+        del k3_calls
+        val = [float(x) for x in re.findall(r"Val Recall@20: ([\d.]+)", text)]
+        check(len(val) == 1 and 0 < val[0] <= 1, f"amazon_books: Val Recall@20 {val}")
+        ms_step = Config().batch_size / _ex_per_s(text) * 1e3
+        text = _cli(["test", *common])
+        test_recall = float(re.search(r"Recall@20: ([\d.]+)", text).group(1))
+        check(0 < test_recall <= 1, f"amazon_books test: Recall@20 {test_recall}")
+
+        rng = np.random.default_rng(7)
+        k2_calls, k2, overlap = [], [], None
+        for n_users in REVIEW_REQUESTS:
+            users = ",".join(map(str, sorted(rng.choice(bundle.num_users, n_users,
+                                                        replace=False).tolist())))
+            quant.quantize_rows_int8.launches = quant.quantize_users_int8.launches = 0
+            with _k2_recorder(k2_calls):
+                text = _cli(["recommend", *common, "--int8", "--k", str(K), "--users", users])
+            got = (quant.quantize_rows_int8.launches, quant.quantize_users_int8.launches)
+            check(got == (1, 1) and len(_top_items(text)) == n_users,
+                  f"amazon_books recommend --int8, {n_users} users: K2 launched once on load "
+                  f"and once for the request ({got})")
+            k2.append(got)
+        int8_items = _top_items(text)
+        f32_items = _top_items(_cli(["recommend", *common, "--k", str(K), "--users", users]))
+        overlap = float(np.mean([len(set(int8_items[u]) & set(f32_items[u])) / K
+                                 for u in f32_items]))
+        check(overlap >= MIN_INT8_OVERLAP,
+              f"amazon_books: int8 top-{K} overlaps f32 top-{K} by {overlap:.4f} over "
+              f"{len(f32_items)} users")
+        k2_shapes = _check_cli_quantizer(k2_calls)
+        del k2_calls
+
+        # amazon_books_emb: LightGCN_Fusion on the written embeddings
+        emb_dir, emb_bundle = data["amazon_books_emb"]
+        t0 = time.perf_counter()
+        text = _cli(["train", "--processed_dir", emb_dir, "--output_root",
+                     os.path.join(tmp, "fusion"), "--model_name", "LightGCN_Fusion",
+                     "--use_pretrained_emb", "--epochs", "1", "--val_interval", "1",
+                     "--batch_size", str(REVIEW_FUSION_BATCH)])
+        fusion_s = time.perf_counter() - t0
+        losses = [float(x) for x in re.findall(r"Average Loss: ([-\d.eE+naN]+)", text)]
+        fusion_val = [float(x) for x in re.findall(r"Val Recall@20: ([\d.]+)", text)]
+        check(f"Loading pretrained item embeddings from {emb_dir}" in text
+              and len(losses) == 1 and np.isfinite(losses).all()
+              and len(fusion_val) == 1 and 0 <= fusion_val[0] <= 1,
+              f"amazon_books_emb: LightGCN_Fusion trains "
+              f"{-(-len(emb_bundle.train) // REVIEW_FUSION_BATCH)} steps on the written "
+              f"item_embeddings.npy (loss {losses}, Val Recall@20 {fusion_val})")
+
+        # steam_emb: the readiness drill on the raw dump
+        from gcn_recommendation_tpu_torch.tools import real_data_dryrun
+
+        t0 = time.perf_counter()
+        rc, _, _ = _tool(real_data_dryrun, [
+            "--recipe", "steam_emb", "--review_path", os.path.join(tmp, "steam_emb_reviews.jsonl"),
+            "--meta_path", os.path.join(tmp, "steam_emb_meta.jsonl"),
+            "--full_dir", os.path.join(tmp, "dryrun")])
+        check(rc == 0, "real_data_dryrun --recipe steam_emb on the steam dump exits 0")
+        dryrun_s = time.perf_counter() - t0
+        loaded = sorted(k for k, v in sys.modules.items()
+                        if v is not None and k.split(".")[0] == "pandas")
+        check(loaded == [], f"review dumps: no pandas module was loaded ({loaded})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.update({
+        "train_s": round(train_s, 2), "ms_per_step": ms_step, "steps": steps,
+        "tile_min_fill": REVIEW_TILE_MIN_FILL, "tiles": tiles_n, "tile_edges": covered,
+        "edges": nnz,
+        "val_recall": val[0], "test_recall": test_recall, "int8_overlap": overlap,
+        "k3": k3, "k3_checked": k3_checks, "k2": {"requests": list(REVIEW_REQUESTS),
+                                                 "stochastic_nearest": k2},
+        "k2_shapes_checked": k2_shapes, "fusion_s": round(fusion_s, 2),
+        "fusion_loss": losses[0], "fusion_val_recall": fusion_val[0],
+        "dryrun_s": round(dryrun_s, 2), "seconds": round(time.perf_counter() - t_phase, 1)})
+    print("review_dumps: " + json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_review_dumps():
+    """Phase 17: ``review_dumps_child`` in a child process where pandas
+    cannot be imported; its lines shown.  Returns K2's and K3's launches
+    on the review-dump path."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", REVIEW_CHILD], cwd=REPO, capture_output=True,
+                         text=True, timeout=REVIEW_TIMEOUT_S)
+    sys.stdout.write(res.stdout)
+    sys.stdout.flush()
+    if res.returncode != 0:
+        sys.stderr.write(res.stderr[-6000:])
+    check(res.returncode == 0, f"phase 17 (review dumps) in a process without pandas exited 0 "
+                               f"({time.perf_counter() - t0:.1f} s)")
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("review_dumps: ")]
+    check(len(line) == 1, "phase 17 printed one review_dumps: line")
+    rec = json.loads(line[0][len("review_dumps: "):])
+    stochastic = sum(s for s, _ in rec["k2"]["stochastic_nearest"])
+    nearest = sum(n for _, n in rec["k2"]["stochastic_nearest"])
+    return {"quantize_rows_int8": stochastic, "quantize_users_int8": nearest,
+            "tile_matvec": rec["k3"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -3146,6 +3528,7 @@ def main() -> int:
     cli_launches = phase_cli_dataset()
     tools_launches = phase_tools(dev)
     phase_studies(dev)
+    review_launches = phase_review_dumps()
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -3171,6 +3554,10 @@ def main() -> int:
         quant_record[f"launches_{tool}_stochastic"] = tools_launches[tool]["stochastic"]
         quant_record[f"launches_{tool}_nearest"] = tools_launches[tool]["nearest"]
     tile_record["launches_exp_tile_spmm"] = tools_launches["exp_tile_spmm"]
+    quant_record["launches_review_path"] = (review_launches["quantize_rows_int8"]
+                                            + review_launches["quantize_users_int8"])
+    quant_record["launches_review_path_nearest"] = review_launches["quantize_users_int8"]
+    tile_record["launches_review_path"] = review_launches["tile_matvec"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),

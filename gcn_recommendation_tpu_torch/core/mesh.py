@@ -30,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -124,13 +126,15 @@ def _local_rank_main(rank, world, store, out, device, timeout_s, fn, args):
         distributed.shutdown()
 
 
-def run_local_world(n_ranks: int, fn, *args, device: str = "cpu", timeout_s: float = 600.0):
+def run_local_world(n_ranks: int, fn, *args, device: DeviceLike = None,
+                    timeout_s: float = 600.0):
     """Run ``fn(*args)`` on every rank of a world of ``n_ranks`` processes
     on this machine and return rank 0's result.
 
     Each rank joins over a ``file://`` store in a fresh temporary
-    directory (worlds started side by side never share a port), on the
-    CPU over gloo (``device="cpu"``) or on ``cuda:rank`` over NCCL, with
+    directory (worlds started side by side never share a port), on
+    ``cuda:rank`` over NCCL or, when asked with ``device="cpu"``, on the CPU
+    over gloo (``core/device.py``: no CUDA and no ``device`` raises), with
     one thread for the CPU's own ops.  ``fn`` must be a module-level
     function of this package, so a rank imports nothing else; its result
     must pickle (numpy arrays, floats).  When a rank fails, the others are
@@ -139,6 +143,7 @@ def run_local_world(n_ranks: int, fn, *args, device: str = "cpu", timeout_s: flo
     """
     import torch.multiprocessing as mp
 
+    device = resolve_device(device).type
     with tempfile.TemporaryDirectory(prefix="gcn_world_") as tmp:
         store = os.path.join(tmp, "store")
         out = os.path.join(tmp, "rank0.pkl")

@@ -27,14 +27,18 @@ Recipe parity (each bullet cites the reference script it reproduces):
   temporal leave-one-out split by timestamp; 16-core
   (dataset/steam_emb/prepare_data.py:21,66-73,104-112,149).
 
-The port's own copy of ``gcn_recommendation_tpu/data/prepare.py`` (numpy
-and pandas, no device code), held against it file for file by
-``tests/test_torch_prepare.py``.  These dataset recipes parse JSONL dumps
-that are not in the repository and need pandas (host-only ETL); the
-parquet files are written by the port's ``data/parquet.py``, so the
-``synthetic`` recipe (``data/synthetic.py``) and every reader need none.  The K-core filter runs in the native
-C++ library (``data/native_ext.py``) when it loads and in numpy
-otherwise, as in the JAX package; both give the same mask.
+The port's own copy of ``gcn_recommendation_tpu/data/prepare.py``, held
+against it file for file by ``tests/test_torch_prepare.py``.  It needs no
+pandas: the JAX package's frame operations (``factorize``, ``unique`` /
+``map``, ``nunique``, the split's ``sort_values`` + ``cumcount`` and
+``rank(method="first")``) are numpy and dicts here, with pandas'
+treatment of the ids kept (``_factorize``): equal ids collapse as in its
+hashtable (``1``, ``1.0`` and ``True`` are one id, ``12345`` and
+``"12345"`` two), and a NaN id is one id, which a metadata record finds
+only where pandas keeps the parsed NaN object (a column of mixed types).
+The parquet files are written by the port's ``data/parquet.py``.  The
+K-core filter runs in the native C++ library (``data/native_ext.py``)
+when it loads and in numpy otherwise; both give the same mask.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from operator import itemgetter
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -246,6 +251,58 @@ def _safe_parse(parse, rec):
         return None
 
 
+# A NaN id in a column that pandas stores as float64 or as strings is a
+# missing value: one class of its own, but no metadata record's id equals
+# it.  In a column of mixed types pandas keeps the parsed NaN object, and
+# the metadata's NaN, the same object (``json`` parses every NaN into one),
+# finds it.
+_MISSING = object()
+
+
+def _first_appearance(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``codes`` renumbered 0.. in order of first appearance (int32, as
+    pandas' ``unique`` + ``map``), and the code of each new number."""
+    uniq, first, inv = np.unique(codes, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty(len(uniq), np.int64)
+    rank[order] = np.arange(len(uniq))
+    return rank[inv.reshape(-1)].astype(np.int32), uniq[order]
+
+
+def _is_float_column(values: list, types: set) -> bool:
+    """Whether ``pandas.DataFrame`` stores these parsed ids as float64:
+    ints and floats, with every int inside int64's or uint64's range."""
+    if not (types <= {int, float} and float in types):
+        return False
+    # the distinct (type, id) pairs: an int equal to a float id still counts
+    ints = [v for t, v in dict.fromkeys(zip(map(type, values), values)) if t is int]
+    lo, hi = min(ints, default=0), max(ints, default=0)
+    return -(1 << 63) <= lo and hi < (1 << 63) or 0 <= lo and hi < (1 << 64)
+
+
+def _factorize(values: list) -> Tuple[np.ndarray, list, int]:
+    """One id column as pandas treats it: (codes, classes numbered
+    in order of first appearance; the key that looks up each class; the
+    class of NaN ids, or -1).  An unhashable id raises ``TypeError``, as in
+    pandas."""
+    types = set(map(type, values))
+    if _is_float_column(values, types):
+        x = np.array(values, dtype=np.float64)  # large ints round as in pandas
+        uniq, inv = np.unique(x, return_inverse=True)  # NaNs are one value
+        codes, classes = _first_appearance(inv.reshape(-1))
+        keys = [_MISSING if v != v else v for v in uniq[classes].tolist()]
+    else:
+        keys = list(dict.fromkeys(values))
+        index = dict(zip(keys, range(len(keys))))
+        codes = np.fromiter(map(index.__getitem__, values), np.int64, len(values))
+        floats = [k for k in keys if type(k) is float]
+        if str in types and types <= {str, float} and all(k != k for k in floats):
+            # strings and NaN: pandas' string column, where NaN is missing
+            keys = [_MISSING if type(k) is float else k for k in keys]
+    nan = [c for c, k in enumerate(keys) if k is _MISSING or (type(k) is float and k != k)]
+    return codes, keys, nan[0] if nan else -1
+
+
 def prepare_and_save_data(
     recipe: Recipe,
     review_path: str,
@@ -253,8 +310,6 @@ def prepare_and_save_data(
     output_base_dir: str,
     core: Optional[int] = None,
 ) -> str:
-    import pandas as pd
-
     core = recipe.default_core if core is None else core
     print(f"--- Starting Data Preparation ({recipe.name}) ---")
 
@@ -272,24 +327,30 @@ def prepare_and_save_data(
     if not rows:
         print("Error: no usable reviews found.")
         return ""
-    df = pd.DataFrame(rows, columns=["user_id", "item_id", "order_value"])
-    print(f"Loaded {len(df)} interactions initially.")
+    print(f"Loaded {len(rows)} interactions initially.")
+    user_codes, user_keys, user_nan = _factorize(list(map(itemgetter(0), rows)))
+    item_codes, item_keys, item_nan = _factorize(list(map(itemgetter(1), rows)))
+    order_value = np.fromiter(map(itemgetter(2), rows), np.float64, len(rows))
+    del rows
 
     # 2. K-core
-    if not (recipe.kcore_skippable and core <= 1):
-        u_codes, _ = pd.factorize(df["user_id"])
-        i_codes, _ = pd.factorize(df["item_id"])
-        keep = kcore_filter(
-            u_codes.astype(np.int64), i_codes.astype(np.int64), core
-        )
-        df = df[keep]
+    if recipe.kcore_skippable and core <= 1:
+        keep = np.ones(len(order_value), dtype=bool)
+    else:
+        keep = kcore_filter(user_codes, item_codes, core)
+    # 3. dense ID maps (first-appearance order, like the reference's
+    #    dict-comprehension over .unique())
+    user_idx, user_classes = _first_appearance(user_codes[keep])
+    item_idx, item_classes = _first_appearance(item_codes[keep])
+    order_value = order_value[keep]
     print(
-        f"Filtered to {len(df)} interactions, {df['user_id'].nunique()} users, "
-        f"{df['item_id'].nunique()} items."
+        f"Filtered to {len(order_value)} interactions, "
+        f"{len(user_classes) - int(user_nan in user_classes)} users, "
+        f"{len(item_classes) - int(item_nan in item_classes)} items."
     )
+    item_map = {item_keys[c]: k for k, c in enumerate(item_classes.tolist())}
 
-    # 3. metadata
-    active = set(df["item_id"].unique())
+    # 4. metadata
     meta_brands: Dict[str, List[str]] = {}
     meta_embeddings: Dict[str, list] = {}
     for rec in _iter_jsonl(meta_path, "metadata"):
@@ -297,7 +358,7 @@ def prepare_and_save_data(
         if parsed is None:
             continue
         item_id, brands, embd = parsed
-        if item_id not in active:
+        if item_id not in item_map:
             continue
         # brand labels must be hashable strings — real category lists
         # occasionally contain None / numbers / nested lists
@@ -307,13 +368,6 @@ def prepare_and_save_data(
         if embd:
             meta_embeddings[item_id] = embd
     print(f"Extracted brand/category metadata for {len(meta_brands)} items.")
-
-    # 4. dense ID maps (first-appearance order, like the reference's
-    #    dict-comprehension over .unique())
-    user_map = {v: k for k, v in enumerate(df["user_id"].unique())}
-    item_map = {v: k for k, v in enumerate(df["item_id"].unique())}
-    df["user_idx"] = df["user_id"].map(user_map).astype(np.int32)
-    df["item_idx"] = df["item_id"].map(item_map).astype(np.int32)
 
     ib_items, ib_brands = [], []
     for item_id, brands in meta_brands.items():
@@ -332,38 +386,44 @@ def prepare_and_save_data(
         dtype=np.int32,
     )
 
-    # 5. leave-one-out split
+    # 5. leave-one-out split: each user's rows in rank order, ties by
+    #    appearance (np.lexsort is stable)
+    test_mask = np.zeros(len(order_value), dtype=bool)
     if recipe.split == "timestamp":
-        # newest interaction per user = test (steam_emb/prepare_data.py:104-112).
+        # newest interaction per user = test (steam_emb/prepare_data.py:104-112):
+        # the last of the user's rows in ascending time, NaN times last.
         # Documented deviation: the reference's sort_values default is an
         # UNSTABLE quicksort, so among tied max-timestamps it picks an
-        # arbitrary (platform/version-dependent) row; the stable sort here
+        # arbitrary (platform/version-dependent) row; the stable order here
         # deterministically keeps the last-in-file row.  Splits therefore
         # differ on users whose newest interactions share a timestamp —
         # both choices are uniform over the tie set, but cross-pipeline
         # split comparisons must account for it.
-        df = df.sort_values("order_value", ascending=True, kind="stable")
-        rank = df.groupby("user_idx").cumcount(ascending=False)
-        test_mask = rank == 0
+        by_user = np.lexsort((order_value, user_idx))
+        u = user_idx[by_user]
+        test_mask[by_user[np.diff(u, append=-1) != 0]] = True
+        # the files keep the frame's stable time order
+        rows = np.argsort(order_value, kind="stable")
     else:
         # highest rating first, ties by appearance (rating-rank recipes,
-        # amazon_books/prepare_data.py:95-97)
-        rank = df.groupby("user_idx")["order_value"].rank(
-            method="first", ascending=False
-        )
-        test_mask = rank == 1
-    test_df = df[test_mask]
-    train_df = df[~test_mask]
-    print(f"Split to {len(train_df)} training and {len(test_df)} testing interactions.")
+        # amazon_books/prepare_data.py:95-97); a NaN rating has no rank, so
+        # a user whose ratings are all NaN has no test row
+        rated = np.flatnonzero(~np.isnan(order_value))
+        by_user = rated[np.lexsort((-order_value[rated], user_idx[rated]))]
+        u = user_idx[by_user]
+        test_mask[by_user[np.diff(u, prepend=-1) != 0]] = True
+        rows = np.arange(len(order_value))
+    test_rows, train_rows = rows[test_mask[rows]], rows[~test_mask[rows]]
+    print(f"Split to {len(train_rows)} training and {len(test_rows)} testing interactions.")
 
     # 6. save artifacts
     out_dir = os.path.join(
         output_base_dir, f"processed_data_{core}{recipe.out_suffix}"
     )
     os.makedirs(out_dir, exist_ok=True)
-    for name, frame in (("train", train_df), ("test", test_df)):
+    for name, r in (("train", train_rows), ("test", test_rows)):
         write_columns(os.path.join(out_dir, f"{name}.parquet"),
-                      {c: frame[c].to_numpy() for c in ("user_idx", "item_idx")})
+                      {"user_idx": user_idx[r], "item_idx": item_idx[r]})
     write_columns(os.path.join(out_dir, "item_brand.parquet"),
                   {"item_idx": ib_item_idx, "brand_idx": ib_brand_idx})
     if meta_embeddings:
@@ -409,7 +469,7 @@ def prepare_and_save_data(
     with open(os.path.join(out_dir, "stats.json"), "w") as f:
         json.dump(
             {
-                "num_users": len(user_map),
+                "num_users": len(user_classes),
                 "num_items": len(item_map),
                 "num_brands": len(brand_map),
             },

@@ -8,7 +8,9 @@ runs on each rank of a small world (``run_local_world(2, train_case,
 ...)``): the multi-rank runs of the CPU tests over gloo and of the chip
 smoke test's two-card phase over NCCL.  With ``mesh_shape=None`` a
 driver runs the single-device path in the calling process, the
-reference the sharded runs are held against.
+reference the sharded runs are held against.  Every driver runs on the
+card unless it is given ``device="cpu"`` (``core/device.py``); on a mesh,
+``device`` must name the mesh's device type.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from gcn_recommendation_tpu_torch.config import Config
+from gcn_recommendation_tpu_torch.core.device import resolve_device
 from gcn_recommendation_tpu_torch.core.mesh import MODEL_AXIS, MeshSpec, create_mesh
 from gcn_recommendation_tpu_torch.models import get_model
 
@@ -25,12 +28,28 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _mesh(mesh_shape):
-    return create_mesh(MeshSpec(*mesh_shape))
+def _on(device, mesh=None) -> torch.device:
+    """The device a driver runs on: ``device`` through ``resolve_device``
+    (cuda unless the caller asks for the CPU), or the mesh's device, which
+    must be of that type."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if mesh.device.type != dev.type:
+        raise ValueError(f"device {dev.type!r} asked of a mesh on {mesh.device}")
+    return mesh.device
+
+
+def _mesh(mesh_shape, device):
+    """(the mesh of ``mesh_shape``, or None; the device the driver runs on).
+    ``device`` resolves first: a call without one fails before a mesh."""
+    resolve_device(device)
+    mesh = create_mesh(MeshSpec(*mesh_shape)) if mesh_shape is not None else None
+    return mesh, _on(device, mesh)
 
 
 def make_trainer(bundle, cfg_kwargs, model_name="LightGCN", content=None, params=None,
-                 mesh=None, schedule="gspmd", device="cpu"):
+                 mesh=None, schedule="gspmd", device=None):
     """A trainer over ``bundle`` whose model starts from ``params``
     (logical numpy or tensors; None: the config seed's fresh tables):
     ``Trainer`` without a mesh, else the ``schedule``'s sharded trainer on
@@ -40,7 +59,7 @@ def make_trainer(bundle, cfg_kwargs, model_name="LightGCN", content=None, params
     from gcn_recommendation_tpu_torch.train.trainer import Trainer
 
     cfg = Config(**cfg_kwargs)
-    dev = mesh.device if mesh is not None else device
+    dev = _on(device, mesh)
     model = get_model(model_name)(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
                                   pretrained_item_emb=content, device=dev)
     if params is None:
@@ -54,7 +73,7 @@ def make_trainer(bundle, cfg_kwargs, model_name="LightGCN", content=None, params
 
 
 def train_case(bundle, cfg_kwargs, batches, model_name="LightGCN", content=None, params=None,
-               mesh_shape=None, schedule="gspmd", epochs=0, validate=False, device="cpu",
+               mesh_shape=None, schedule="gspmd", epochs=0, validate=False, device=None,
                record_trajectory=True):
     """Steps on the given whole batches (``[(users, pos, neg)]`` numpy),
     then ``epochs`` sampled epochs from the trainer's seeded generator.
@@ -62,7 +81,7 @@ def train_case(bundle, cfg_kwargs, batches, model_name="LightGCN", content=None,
     ``record_trajectory``), the epoch losses, the final logical params,
     the largest |pad row| of every table, and (with ``validate``)
     Recall/NDCG."""
-    mesh = _mesh(mesh_shape) if mesh_shape is not None else None
+    mesh, _ = _mesh(mesh_shape, device)
     tr = make_trainer(bundle, cfg_kwargs, model_name, content, params, mesh, schedule, device)
     step_losses, trajectory = [], []
     for s, batch in enumerate(batches):
@@ -87,16 +106,16 @@ def train_case(bundle, cfg_kwargs, batches, model_name="LightGCN", content=None,
 
 
 def fit_case(bundle, cfg_kwargs, mesh_shape=None, schedule="gspmd", resume=False,
-             device="cpu"):
+             device=None):
     """``fit`` (or ``fit(resume=True)``) from the config seed's tables;
     returns the best recall."""
-    mesh = _mesh(mesh_shape) if mesh_shape is not None else None
+    mesh, _ = _mesh(mesh_shape, device)
     tr = make_trainer(bundle, cfg_kwargs, mesh=mesh, schedule=schedule, device=device)
     return {"best_recall": tr.fit(resume=resume)[1]}
 
 
 def topk_case(mesh_shape, user_emb, k, filter_idx, num_valid_items, item_emb=None,
-              item_q=None, item_scale=None, device="cpu"):
+              item_q=None, item_scale=None, device=None):
     """The distributed top-k of ``user_emb`` against a catalog padded to a
     multiple of the model axis: f32 (``item_emb``) or int8 (``item_q``,
     ``item_scale``).  Each rank takes its rows; returns (values, indices)."""
@@ -106,10 +125,10 @@ def topk_case(mesh_shape, user_emb, k, filter_idx, num_valid_items, item_emb=Non
         sharded_topk_eval_batch,
     )
 
-    mesh = _mesh(mesh_shape)
+    mesh, dev = _mesh(mesh_shape, device)
 
     def t(a):
-        return torch.from_numpy(np.asarray(a)).to(mesh.device)
+        return torch.from_numpy(np.asarray(a)).to(dev)
 
     filt = t(np.asarray(filter_idx, np.int64))
     if item_emb is not None:
@@ -123,18 +142,18 @@ def topk_case(mesh_shape, user_emb, k, filter_idx, num_valid_items, item_emb=Non
 
 
 def evaluate_case(mesh_shape, fu, fi, eval_inter, filter_inter, num_users, num_items, k,
-                  batch_size, device="cpu"):
+                  batch_size, device=None):
     """``evaluate_sharded`` of given final embeddings; (recall, ndcg)."""
     from gcn_recommendation_tpu_torch.parallel.spmd import evaluate_sharded
 
-    mesh = _mesh(mesh_shape)
+    mesh, dev = _mesh(mesh_shape, device)
     return evaluate_sharded(
-        mesh, torch.from_numpy(fu).to(mesh.device), torch.from_numpy(fi).to(mesh.device),
+        mesh, torch.from_numpy(fu).to(dev), torch.from_numpy(fi).to(dev),
         eval_inter, filter_inter, num_users, num_items, k, batch_size)
 
 
 def retriever_case(bundle, cfg_kwargs, params, requests, k, quantize, mesh_shape=None,
-                   device="cpu"):
+                   device=None):
     """A ``Retriever`` over ``params`` (the mesh's sharded one, or the
     single-device one): each request's (scores, items), the int8 catalog's
     codes and scales over the logical rows (gathered from every model
@@ -143,8 +162,7 @@ def retriever_case(bundle, cfg_kwargs, params, requests, k, quantize, mesh_shape
     from gcn_recommendation_tpu_torch.parallel.collectives import all_gather_rows
     from gcn_recommendation_tpu_torch.serve import Retriever
 
-    mesh = _mesh(mesh_shape) if mesh_shape is not None else None
-    dev = mesh.device if mesh is not None else torch.device(device)
+    mesh, dev = _mesh(mesh_shape, device)
     cfg = Config(**cfg_kwargs)
     model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
                                   device=dev)
@@ -173,22 +191,22 @@ def run_cases(cases):
 
 
 def halo_propagation_case(mesh_shape, graph, emb, cotangent, n_layers, dense_threshold=128,
-                          device="cpu"):
+                          device=None):
     """``make_halo_propagator`` over ``shard_ell(graph)`` on the mesh: the
     final block of ``emb`` (zero-padded to the sharded node count) and the
     gradient of ``sum(final * cotangent)`` in ``emb``, both over the
     padded rows."""
     from gcn_recommendation_tpu_torch.parallel.halo import make_halo_propagator, shard_ell
 
-    mesh = _mesh(mesh_shape)
+    mesh, dev = _mesh(mesh_shape, device)
     sharded = shard_ell(graph, mesh.shape[MODEL_AXIS], dense_threshold=dense_threshold)
     prop = make_halo_propagator(mesh, sharded, n_layers)
     n_pad = sharded.num_nodes_pad
     e = torch.zeros((n_pad, emb.shape[1]))
     e[: emb.shape[0]] = torch.from_numpy(emb)
-    e = e.to(mesh.device).requires_grad_(True)
+    e = e.to(dev).requires_grad_(True)
     v = torch.zeros_like(e)
-    v[: cotangent.shape[0]] = torch.from_numpy(cotangent).to(mesh.device)
+    v[: cotangent.shape[0]] = torch.from_numpy(cotangent).to(dev)
     out = prop(e)
     (grad,) = torch.autograd.grad((out * v).sum(), e)
     return _np(out), _np(grad)

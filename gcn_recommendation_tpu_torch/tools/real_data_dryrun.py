@@ -10,8 +10,9 @@ command to run against a real dump:
 
 It runs, in order, and prints each stage:
 
-1. the recipe's ETL (``data/prepare.py``; pandas reads the raw JSONL) into
-   a scratch directory, malformed lines skipped and counted, never fatal;
+1. the recipe's ETL (``data/prepare.py``, numpy and the standard library,
+   no pandas) into a scratch directory, malformed lines skipped and
+   counted, never fatal;
 2. the loader and the graph build (``data/loader.py``: dedup-sum,
    D^-1/2 A D^-1/2, the graph statistics);
 3. a debug-scale training smoke (the reference's ``--debug`` protocol: a

@@ -79,7 +79,7 @@ def data(tiny_bundle):
     d["emb"] = rng.standard_normal((g.num_nodes, 16)).astype(np.float32)
     d["cot"] = rng.standard_normal((g.num_nodes, 16)).astype(np.float32)
     d["params"] = {k: v.numpy() for k, v in
-                   drivers.make_trainer(pb, CFG).model.params().items()}
+                   drivers.make_trainer(pb, CFG, device="cpu").model.params().items()}
     d["batches"] = _batches(pb, 3, 128, 1)
     d["nd"] = synthetic_bundle(90, 70, 11, mean_degree=8.0, seed=0)
     d["nd_batches"] = _batches(d["nd"], 2, 64, 2)
@@ -89,13 +89,13 @@ def data(tiny_bundle):
 def _prop_case(d, shape):
     return ("halo_propagation_case", dict(mesh_shape=shape, graph=d["g"], emb=d["emb"],
                                           cotangent=d["cot"], n_layers=LAYERS,
-                                          dense_threshold=16))
+                                          dense_threshold=16, device="cpu"))
 
 
 def _train_case(d, shape, cfg=CFG):
     return ("train_case", dict(bundle=d["pb"], cfg_kwargs=cfg, batches=d["batches"],
                                params=d["params"], mesh_shape=shape, schedule="halo",
-                               epochs=1, validate=True))
+                               epochs=1, validate=True, device="cpu"))
 
 
 def _spawn(n_ranks, cases):
@@ -104,7 +104,7 @@ def _spawn(n_ranks, cases):
 
     def run():
         try:
-            box["out"] = run_local_world(n_ranks, drivers.run_cases, flat)
+            box["out"] = run_local_world(n_ranks, drivers.run_cases, flat, device="cpu")
         except Exception as e:  # noqa: BLE001 - re-raised in wait()
             box["err"] = e
 
@@ -134,7 +134,7 @@ def spawned(data):
         "prop": [_prop_case(d, (1, 4)), _prop_case(d, (2, 2))],
         "train": [_train_case(d, (2, 2))],
         "nd": [("train_case", dict(bundle=d["nd"], cfg_kwargs=ND_CFG, batches=d["nd_batches"],
-                                   mesh_shape=(1, 4), schedule="halo"))],
+                                   mesh_shape=(1, 4), schedule="halo", device="cpu"))],
     })
     return wait2, wait4
 
@@ -214,7 +214,7 @@ def test_shard_ell_matches_jax(data, jax_prop):
 def single(data):
     d = data
     return {name: drivers.train_case(d["pb"], cfg, d["batches"], params=d["params"], epochs=1,
-                                     validate=True)
+                                     validate=True, device="cpu")
             for name, cfg in (("plain", CFG), ("brand", BRAND_CFG))}
 
 
@@ -270,7 +270,7 @@ def test_halo_nondivisible_vocab(data, world4):
                                   "brand_embedding": 12}
     assert out["local_rows"] == {"user_embedding": 23, "item_embedding": 18,
                                  "brand_embedding": 3}
-    ref = drivers.train_case(data["nd"], ND_CFG, data["nd_batches"])
+    ref = drivers.train_case(data["nd"], ND_CFG, data["nd_batches"], device="cpu")
     _close(out["step_losses"], ref["step_losses"], "losses")
     for k in ref["params"]:
         _close(out["params"][k], ref["params"][k], k)
@@ -297,7 +297,7 @@ def test_apply_with_propagators_match_forward_and_jax(data):
     from gcn_recommendation_tpu_torch.ops import spmm
 
     pb, jb = data["pb"], data["jb"]
-    model = drivers.make_trainer(pb, CFG, params=data["params"]).model
+    model = drivers.make_trainer(pb, CFG, params=data["params"], device="cpu").model
     dg = spmm.to_device_graph(pb.graph, device="cpu")
     graph_args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
     n, layers = pb.graph.num_nodes, CFG["n_layers"]

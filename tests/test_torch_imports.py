@@ -72,7 +72,7 @@ def test_spawned_ranks_import_no_jax():
     from gcn_recommendation_tpu_torch.core.distributed import runtime_report
     from gcn_recommendation_tpu_torch.core.mesh import run_local_world
 
-    report = run_local_world(2, runtime_report)
+    report = run_local_world(2, runtime_report, device="cpu")
     assert report["rank"] == 0 and report["world_size"] == 2
     assert report["backend"] == "gloo" and report["device"] == "cpu"
     assert PKG in report["packages"] and "torch" in report["packages"]

@@ -71,7 +71,7 @@ def data(tiny_bundle, tmp_path_factory):
     rng = np.random.default_rng(0)
     d = dict(jb=jb, pb=pb, ck=str(tmp_path_factory.mktemp("ck")))
     d["params"] = {k: v.numpy() for k, v in
-                   drivers.make_trainer(pb, CFG).model.params().items()}
+                   drivers.make_trainer(pb, CFG, device="cpu").model.params().items()}
     d["batches"] = _batches(pb, 3, 128, 1)
     d["nd"] = synthetic_bundle(90, 70, 11, mean_degree=8.0, seed=0)
     d["nd_batches"] = _batches(d["nd"], 2, 64, 2)
@@ -110,11 +110,13 @@ def _topk_cases(d, model):
     s_pad = np.concatenate([d["s2"], np.ones((pad(d["q2"], model).shape[0] - 6, 1), np.float32)])
     return [
         ("topk_case", dict(mesh_shape=(1, model), user_emb=d["u1"], k=5, filter_idx=d["filt1"],
-                           num_valid_items=100, item_emb=pad(d["items1"], model))),
+                           num_valid_items=100, item_emb=pad(d["items1"], model),
+                           device="cpu")),
         ("topk_case", dict(mesh_shape=(1, model), user_emb=d["u2"], k=20, filter_idx=d["filt2"],
-                           num_valid_items=6, item_emb=pad(d["items2"], model))),
+                           num_valid_items=6, item_emb=pad(d["items2"], model), device="cpu")),
         ("topk_case", dict(mesh_shape=(1, model), user_emb=d["u2"], k=20, filter_idx=d["filt2"],
-                           num_valid_items=6, item_q=pad(d["q2"], model), item_scale=s_pad)),
+                           num_valid_items=6, item_q=pad(d["q2"], model), item_scale=s_pad,
+                           device="cpu")),
     ]
 
 
@@ -122,20 +124,20 @@ def _eval_case(d, shape):
     return ("evaluate_case", dict(
         mesh_shape=shape, fu=d["fu"], fi=d["fi"], eval_inter=Interactions(*d["ev_val"]),
         filter_inter=Interactions(*d["ev_train"]), num_users=30, num_items=500, k=10,
-        batch_size=4))
+        batch_size=4, device="cpu"))
 
 
 def _train_case(d, shape, **kw):
     return ("train_case", dict(bundle=d["pb"], cfg_kwargs=CFG, batches=d["batches"],
                                params=d["params"], mesh_shape=shape, schedule="gspmd",
-                               epochs=1, validate=True, **kw))
+                               epochs=1, validate=True, device="cpu", **kw))
 
 
 def _nd_case(d, shape, model_name="LightGCN"):
     return ("train_case", dict(
         bundle=d["nd"], cfg_kwargs=ND_CFG, batches=d["nd_batches"], model_name=model_name,
         content=d["content"] if model_name != "LightGCN" else None, mesh_shape=shape,
-        schedule="gspmd"))
+        schedule="gspmd", device="cpu"))
 
 
 def _spawn(n_ranks, cases):
@@ -148,7 +150,7 @@ def _spawn(n_ranks, cases):
 
     def run():
         try:
-            box["out"] = run_local_world(n_ranks, drivers.run_cases, flat)
+            box["out"] = run_local_world(n_ranks, drivers.run_cases, flat, device="cpu")
         except Exception as e:  # noqa: BLE001 - re-raised in wait()
             box["err"] = e
 
@@ -178,10 +180,10 @@ def spawned(data):
         "fusion": [_nd_case(d, (1, 2), "LightGCN_Fusion")],
         "fit": [("fit_case", dict(bundle=d["pb"], cfg_kwargs=dict(
             CFG, epochs=2, val_interval=2, checkpoint_dir=d["ck"], results_dir=d["ck"]),
-            mesh_shape=(1, 2)))],
+            mesh_shape=(1, 2), device="cpu"))],
         "retriever": [("retriever_case", dict(
             bundle=d["pb"], cfg_kwargs=CFG, params=d["params"], requests=d["requests"], k=10,
-            quantize=q, mesh_shape=(1, 2))) for q in (False, True)],
+            quantize=q, mesh_shape=(1, 2), device="cpu")) for q in (False, True)],
     })
     wait4 = _spawn(4, {
         "topk": _topk_cases(d, 4),
@@ -278,7 +280,7 @@ def single(data):
     """The port's single-device trainer on the same params and batches."""
     d = data
     return drivers.train_case(d["pb"], CFG, d["batches"], params=d["params"], epochs=1,
-                              validate=True)
+                              validate=True, device="cpu")
 
 
 def _train_result(world2, world4, shape):
@@ -355,7 +357,7 @@ def test_nondivisible_vocab_pads_every_table(data, world4):
                                   "brand_embedding": 12}
     assert out["local_rows"] == {"user_embedding": 23, "item_embedding": 18,
                                  "brand_embedding": 3}
-    ref = drivers.train_case(data["nd"], ND_CFG, data["nd_batches"])
+    ref = drivers.train_case(data["nd"], ND_CFG, data["nd_batches"], device="cpu")
     _close(out["step_losses"], ref["step_losses"], "losses")
     for k in ref["params"]:
         _close(out["params"][k], ref["params"][k], k)
@@ -367,7 +369,8 @@ def test_fusion_under_padding_matches_single_device(data, world2):
     padding and row-shards with it; the fusion kernel stays whole."""
     out = world2["fusion"][0]
     ref = drivers.train_case(data["nd"], ND_CFG, data["nd_batches"],
-                             model_name="LightGCN_Fusion", content=data["content"])
+                             model_name="LightGCN_Fusion", content=data["content"],
+                             device="cpu")
     assert out["local_rows"]["item_content_embedding"] == 35
     assert out["local_rows"]["fusion_kernel"] == 32
     _close(out["step_losses"], ref["step_losses"], "losses")
@@ -393,7 +396,8 @@ def test_checkpoint_from_mesh_resumes_on_one_device(data, world2):
     ckpt_dir = os.path.join(data["ck"], Config(**cfg).checkpoint_name())
     with open(ckpt.checkpoint_path(ckpt_dir, "best") + ".layout.json") as f:
         assert json.load(f) == {"layout": "logical", "process_count": 2}
-    tr = drivers.make_trainer(data["pb"], cfg, params=ckpt.load_params(ckpt_dir, device="cpu"))
+    tr = drivers.make_trainer(data["pb"], cfg, params=ckpt.load_params(ckpt_dir, device="cpu"),
+                              device="cpu")
     recall, _ = tr.validate()
     np.testing.assert_allclose(recall, best, rtol=1e-6)
     state = ckpt.load_state(ckpt_dir, "last")
@@ -403,7 +407,8 @@ def test_checkpoint_from_mesh_resumes_on_one_device(data, world2):
 
     distributed.initialize("cpu")
     try:
-        best_mesh = drivers.fit_case(data["pb"], cfg, mesh_shape=(1, 1), resume=True)
+        best_mesh = drivers.fit_case(data["pb"], cfg, mesh_shape=(1, 1), resume=True,
+                                     device="cpu")
     finally:
         distributed.shutdown()
     _, best2 = tr.fit(resume=True)
@@ -415,7 +420,7 @@ def test_checkpoint_from_mesh_resumes_on_one_device(data, world2):
 def test_sharded_retriever_matches_single_device(data, world2, quantize):
     out = world2["retriever"][int(quantize)]
     ref = drivers.retriever_case(data["pb"], CFG, data["params"], data["requests"], 10,
-                                 quantize)
+                                 quantize, device="cpu")
     for (v, i), (rv, ri) in zip(out["answers"], ref["answers"]):
         np.testing.assert_array_equal(i, ri)
         np.testing.assert_allclose(v, rv, rtol=1e-6)
@@ -434,6 +439,38 @@ class _FakeMesh:
     @staticmethod
     def coordinate(axis):
         return 0
+
+
+def _no_device(d, name):
+    """A call of one driver, or of a world, as its caller would write it
+    with the ``device`` argument left out."""
+    def kw(case):
+        return {k: v for k, v in case[1].items() if k != "device"}
+
+    return {
+        "make_trainer": lambda: drivers.make_trainer(d["pb"], CFG),
+        "train_case": lambda: drivers.train_case(**kw(_train_case(d, None))),
+        "fit_case": lambda: drivers.fit_case(d["pb"], CFG),
+        "topk_case": lambda: drivers.topk_case(**kw(_topk_cases(d, 1)[0])),
+        "evaluate_case": lambda: drivers.evaluate_case(**kw(_eval_case(d, (1, 1)))),
+        "retriever_case": lambda: drivers.retriever_case(
+            d["pb"], CFG, d["params"], d["requests"], 10, False),
+        "halo_propagation_case": lambda: drivers.halo_propagation_case(
+            (1, 1), d["pb"].graph, d["fu"], d["fu"], 1),
+        "run_local_world": lambda: run_local_world(1, drivers.run_cases, []),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "make_trainer", "train_case", "fit_case", "topk_case", "evaluate_case", "retriever_case",
+    "halo_propagation_case", "run_local_world"])
+def test_no_device_means_the_card(data, monkeypatch, name):
+    """A driver, or a world, given no device runs on the card: without CUDA
+    it raises ``core/device.py``'s error instead of running on the CPU."""
+    call = _no_device(data, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+        call()
 
 
 def test_shard_params_warns_on_large_nondivisible_table():
