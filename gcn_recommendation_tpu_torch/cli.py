@@ -250,7 +250,8 @@ def _make_config(args):
     from gcn_recommendation_tpu_torch.config import Config
 
     if args.profile_dir:
-        # utils/profiling.trace picks this up around every training epoch
+        # utils/profiling.trace picks this up around every training epoch: a
+        # Chrome trace of each, with the port's spans as ranges
         os.environ["GCN_TPU_TRACE_DIR"] = args.profile_dir
     kwargs = dict(
         model_name=args.model_name,

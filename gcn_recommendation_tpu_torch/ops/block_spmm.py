@@ -45,6 +45,7 @@ import torch
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.tiles import TILE, TilePartition
 from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, _ell_matvec
+from gcn_recommendation_tpu_torch.utils.profiling import span
 
 LAYOUTS = ("dense", "compressed")
 
@@ -288,12 +289,13 @@ def to_device_tiles(
     partition's edge arrays and no dense tile."""
     dev = resolve_device(device)
     layout = _pick_layout(layout, part.covered_edges, part.num_tiles)
-    return _build_tiles(
-        part.tile_a, part.tile_col, part.step_row, part.n_row_blocks,
-        (part.edge_row_ptr, part.edge_src, part.edge_w), layout, tile_dtype, dev,
-        tile_gather_idx=torch.from_numpy(part.tile_gather_idx.astype(np.int64)).to(dev),
-        row_block_nodes=torch.from_numpy(part.row_block_nodes).to(dev),
-    )
+    with span("spmm.to_device"):
+        return _build_tiles(
+            part.tile_a, part.tile_col, part.step_row, part.n_row_blocks,
+            (part.edge_row_ptr, part.edge_src, part.edge_w), layout, tile_dtype, dev,
+            tile_gather_idx=torch.from_numpy(part.tile_gather_idx.astype(np.int64)).to(dev),
+            row_block_nodes=torch.from_numpy(part.row_block_nodes).to(dev),
+        )
 
 
 def _round_like(x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -430,13 +432,15 @@ class _PropagateEllTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb, graph, tiles):
         ctx.graph, ctx.tiles = graph, tiles
-        return _ell_tiles_matvec(emb, graph, tiles)
+        with span("spmm.forward"):
+            return _ell_tiles_matvec(emb, graph, tiles)
 
     @staticmethod
     def backward(ctx, grad):
         # the whole partition sums to the symmetric A_norm (graph/tiles.py),
         # so d(emb) = A_norm @ grad through the same partitioned product
-        return _ell_tiles_matvec(grad, ctx.graph, ctx.tiles), None, None
+        with span("spmm.backward"):
+            return _ell_tiles_matvec(grad, ctx.graph, ctx.tiles), None, None
 
 
 def propagate_ell_tiles(emb: torch.Tensor, graph: DeviceGraph, tiles: TileDeviceArrays):

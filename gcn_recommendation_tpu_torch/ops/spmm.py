@@ -23,6 +23,12 @@ PyTorch counterpart of ``gcn_recommendation_tpu/ops/spmm.py``:
 
 Index arrays are converted to int64 once, when a graph is shipped:
 ``index_select`` and ``index_add_`` take int64 indices.
+
+Spans (``utils/profiling.py``): ``spmm.forward`` / ``spmm.backward``
+around each propagation of the autograd functions, ``spmm.hub`` around
+each hub-row product, ``spmm.to_device`` around a graph's layout and
+upload; the counter ``spmm.gathered_rows`` counts the embedding rows a
+propagation gathers (ELL slots, padding included, and restore gathers).
 """
 
 from __future__ import annotations
@@ -35,6 +41,10 @@ import torch
 
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.build import Graph, build_chunked_ell
+from gcn_recommendation_tpu_torch.utils import profiling
+from gcn_recommendation_tpu_torch.utils.profiling import span
+
+GATHERED_ROWS = "spmm.gathered_rows"
 
 
 @dataclasses.dataclass
@@ -84,44 +94,45 @@ def to_device_graph(
     then resident twice (0.50 GB more for the books bundle's 1,748 x
     72,001 f32 hub rows), the composed neighbor ids once more.  Callers
     that propagate once or shard the graph pass ``fuse_layers=False``."""
-    dev = resolve_device(device)
-    if dense_dtype is None:
-        dense_dtype = compute_dtype
+    with span("spmm.to_device"):
+        dev = resolve_device(device)
+        if dense_dtype is None:
+            dense_dtype = compute_dtype
 
-    def idx(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=dev)
 
-    def val(a, dtype=compute_dtype):
-        return torch.as_tensor(a, device=dev).to(dtype)
+        def val(a, dtype=compute_dtype):
+            return torch.as_tensor(a, device=dev).to(dtype)
 
-    idx_perm, dense_perm = (), None
-    if fuse_layers:
-        # neighbor ids composed into parts order, on the host
-        gi = np.asarray(g.gather_idx, np.int64)
-        idx_perm = tuple(idx(gi[b.nbr_idx]) for b in g.buckets)
-        h = g.dense_mat.shape[0]
-        nrows = sum(b.nbr_idx.shape[0] for b in g.buckets) + h + 1
-        dp = np.zeros((h, nrows), g.dense_mat.dtype)
-        # column v of the node-space hub matrix lands at parts position
-        # gather_idx[v]; degree-0 nodes share the trailing zeros position,
-        # but their columns are all zero (no edges), so the collision is
-        # harmless (the last write wins over zeros)
-        dp[:, gi] = g.dense_mat
-        dense_perm = val(dp, dense_dtype)
+        idx_perm, dense_perm = (), None
+        if fuse_layers:
+            # neighbor ids composed into parts order, on the host
+            gi = np.asarray(g.gather_idx, np.int64)
+            idx_perm = tuple(idx(gi[b.nbr_idx]) for b in g.buckets)
+            h = g.dense_mat.shape[0]
+            nrows = sum(b.nbr_idx.shape[0] for b in g.buckets) + h + 1
+            dp = np.zeros((h, nrows), g.dense_mat.dtype)
+            # column v of the node-space hub matrix lands at parts position
+            # gather_idx[v]; degree-0 nodes share the trailing zeros position,
+            # but their columns are all zero (no edges), so the collision is
+            # harmless (the last write wins over zeros)
+            dp[:, gi] = g.dense_mat
+            dense_perm = val(dp, dense_dtype)
 
-    empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
-    return DeviceGraph(
-        src=idx(g.src) if include_coo else empty_i,
-        dst=idx(g.dst) if include_coo else empty_i,
-        weight=val(g.weight) if include_coo
-        else torch.zeros(0, dtype=compute_dtype, device=dev),
-        bucket_nbr_idx=tuple(idx(b.nbr_idx) for b in g.buckets),
-        bucket_nbr_w=tuple(val(b.nbr_w) for b in g.buckets),
-        gather_idx=idx(g.gather_idx),
-        dense_mat=val(g.dense_mat, dense_dtype),
-        bucket_nbr_idx_perm=idx_perm,
-        dense_mat_perm=dense_perm,
-    )
+        empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
+        return DeviceGraph(
+            src=idx(g.src) if include_coo else empty_i,
+            dst=idx(g.dst) if include_coo else empty_i,
+            weight=val(g.weight) if include_coo
+            else torch.zeros(0, dtype=compute_dtype, device=dev),
+            bucket_nbr_idx=tuple(idx(b.nbr_idx) for b in g.buckets),
+            bucket_nbr_w=tuple(val(b.nbr_w) for b in g.buckets),
+            gather_idx=idx(g.gather_idx),
+            dense_mat=val(g.dense_mat, dense_dtype),
+            bucket_nbr_idx_perm=idx_perm,
+            dense_mat_perm=dense_perm,
+        )
 
 
 def propagate_coo(
@@ -166,7 +177,8 @@ def _hub_rows(dense_mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The hub rows ``dense_mat @ x`` in f32: one dense product replaces
     the power-law gather tail, with f32 accumulation as in the JAX
     package's ``preferred_element_type`` (bf16 x bf16 is exact in f32)."""
-    return torch.matmul(dense_mat.float(), x.to(dense_mat.dtype).float())
+    with span("spmm.hub"):
+        return torch.matmul(dense_mat.float(), x.to(dense_mat.dtype).float())
 
 
 def _parts_matvec(x, bucket_idx, bucket_w, dense):
@@ -175,6 +187,8 @@ def _parts_matvec(x, bucket_idx, bucket_w, dense):
     ``x``'s dtype, without the restore gather.  ``x`` is node-ordered
     (with the node-space indices and hub matrix) or parts-ordered (with
     the composed views of ``to_device_graph(fuse_layers=True)``)."""
+    if profiling.collecting():
+        profiling.count(GATHERED_ROWS, sum(i.numel() for i in bucket_idx))
     parts = [_bucket_reduce(x, idx, w).to(x.dtype) for idx, w in zip(bucket_idx, bucket_w)]
     if dense.shape[0]:
         parts.append(_hub_rows(dense, x).to(x.dtype))
@@ -182,21 +196,28 @@ def _parts_matvec(x, bucket_idx, bucket_w, dense):
     return torch.cat(parts, dim=0)
 
 
-def _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
-    parts = _parts_matvec(emb, bucket_nbr_idx, bucket_nbr_w, dense_mat)
+def _restore(parts, gather_idx):
+    """Node order from parts order: the restore gather."""
+    profiling.count(GATHERED_ROWS, gather_idx.shape[0])
     return parts.index_select(0, gather_idx)
+
+
+def _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
+    return _restore(_parts_matvec(emb, bucket_nbr_idx, bucket_nbr_w, dense_mat), gather_idx)
 
 
 class _PropagateEll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
         ctx.graph = (bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
-        return _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+        with span("spmm.forward"):
+            return _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
 
     @staticmethod
     def backward(ctx, grad):
         # A_norm is symmetric: d(emb) = A_norm^T @ grad = A_norm @ grad
-        return (_ell_matvec(grad, *ctx.graph),) + (None,) * 4
+        with span("spmm.backward"):
+            return (_ell_matvec(grad, *ctx.graph),) + (None,) * 4
 
 
 def propagate_ell(
@@ -234,7 +255,7 @@ def _sum_matvec(n_layers, ego, bucket_idx, bucket_w, idx_perm, gather_idx, dense
     for _ in range(n_layers - 1):
         p = _parts_matvec(p, idx_perm, bucket_w, dense_perm)
         s = s + p.float()
-    return s.index_select(0, gather_idx)
+    return _restore(s, gather_idx)
 
 
 class _PropagateSumEll(torch.autograd.Function):
@@ -244,14 +265,16 @@ class _PropagateSumEll(torch.autograd.Function):
         ctx.n_layers = n_layers
         ctx.dtype = ego.dtype
         ctx.graph = (bucket_idx, bucket_w, idx_perm, gather_idx, dense_mat, dense_perm)
-        return _sum_matvec(n_layers, ego, *ctx.graph)
+        with span("spmm.forward"):
+            return _sum_matvec(n_layers, ego, *ctx.graph)
 
     @staticmethod
     def backward(ctx, grad):
         # sum_k A^k is symmetric (A is): d(ego) is the same fused sum on the
         # cotangent, cast to the primal's storage dtype and handed back in it
-        d_ego = _sum_matvec(ctx.n_layers, grad.to(ctx.dtype), *ctx.graph)
-        return (None, d_ego.to(ctx.dtype)) + (None,) * 6
+        with span("spmm.backward"):
+            d_ego = _sum_matvec(ctx.n_layers, grad.to(ctx.dtype), *ctx.graph)
+            return (None, d_ego.to(ctx.dtype)) + (None,) * 6
 
 
 def propagate_sum_ell(
@@ -405,28 +428,29 @@ def to_device_chunked_graph(
     device: DeviceLike = None,
 ) -> ChunkedDeviceGraph:
     """Build the chunked layout on the host and ship it to ``device``."""
-    dev = resolve_device(device)
-    if dense_dtype is None:
-        dense_dtype = compute_dtype
-    per_cell_buckets, per_cell_gidx, dense_gidx = build_chunked_ell(g, num_chunks)
+    with span("spmm.to_device"):
+        dev = resolve_device(device)
+        if dense_dtype is None:
+            dense_dtype = compute_dtype
+        per_cell_buckets, per_cell_gidx, dense_gidx = build_chunked_ell(g, num_chunks)
 
-    def idx(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=dev)
 
-    def val(a, dtype=compute_dtype):
-        return torch.as_tensor(a, device=dev).to(dtype)
+        def val(a, dtype=compute_dtype):
+            return torch.as_tensor(a, device=dev).to(dtype)
 
-    return ChunkedDeviceGraph(
-        chunk_bucket_idx=tuple(
-            tuple(tuple(idx(b.nbr_idx) for b in buckets) for buckets in cell)
-            for cell in per_cell_buckets),
-        chunk_bucket_w=tuple(
-            tuple(tuple(val(b.nbr_w) for b in buckets) for buckets in cell)
-            for cell in per_cell_buckets),
-        chunk_gather_idx=tuple(tuple(idx(gi) for gi in cell) for cell in per_cell_gidx),
-        dense_mat=val(g.dense_mat, dense_dtype),
-        dense_gather_idx=idx(dense_gidx),
-    )
+        return ChunkedDeviceGraph(
+            chunk_bucket_idx=tuple(
+                tuple(tuple(idx(b.nbr_idx) for b in buckets) for buckets in cell)
+                for cell in per_cell_buckets),
+            chunk_bucket_w=tuple(
+                tuple(tuple(val(b.nbr_w) for b in buckets) for buckets in cell)
+                for cell in per_cell_buckets),
+            chunk_gather_idx=tuple(tuple(idx(gi) for gi in cell) for cell in per_cell_gidx),
+            dense_mat=val(g.dense_mat, dense_dtype),
+            dense_gather_idx=idx(dense_gidx),
+        )
 
 
 def _chunked_matvec(emb, chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat,
@@ -449,14 +473,17 @@ def _chunked_matvec(emb, chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, den
     for ci in range(c):
         sub = src.narrow(0, ci * chunk_rows, chunk_rows)
         for ti in range(s):
+            cell_idx = chunk_bucket_idx[ci][ti]
+            if profiling.collecting():
+                profiling.count(GATHERED_ROWS, sum(i.numel() for i in cell_idx))
             parts = [_bucket_reduce(sub, idx, w)
-                     for idx, w in zip(chunk_bucket_idx[ci][ti], chunk_bucket_w[ci][ti])]
-            out_ct = torch.cat(parts + [zeros_row]).index_select(0, chunk_gather_idx[ci][ti])
+                     for idx, w in zip(cell_idx, chunk_bucket_w[ci][ti])]
+            out_ct = _restore(torch.cat(parts + [zeros_row]), chunk_gather_idx[ci][ti])
             slice_acc[ti] = out_ct if slice_acc[ti] is None else slice_acc[ti] + out_ct
     acc = torch.cat(slice_acc) if s > 1 else slice_acc[0]
     if dense_mat.shape[0]:
         hub = torch.cat([_hub_rows(dense_mat, emb), zeros_row])
-        acc = acc + hub.index_select(0, dense_gather_idx)
+        acc = acc + _restore(hub, dense_gather_idx)
     return acc.to(emb.dtype)
 
 
@@ -466,12 +493,14 @@ class _PropagateChunked(torch.autograd.Function):
                 dense_gather_idx):
         ctx.graph = (chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat,
                      dense_gather_idx)
-        return _chunked_matvec(emb, *ctx.graph)
+        with span("spmm.forward"):
+            return _chunked_matvec(emb, *ctx.graph)
 
     @staticmethod
     def backward(ctx, grad):
         # A^T = A: the backward is the same chunked product on the cotangent
-        return (_chunked_matvec(grad, *ctx.graph),) + (None,) * 5
+        with span("spmm.backward"):
+            return (_chunked_matvec(grad, *ctx.graph),) + (None,) * 5
 
 
 def propagate_chunked(

@@ -10,11 +10,17 @@ evaluation (``topk_eval_batch``) selects with ``stable=True``: a stable
 descending sort, which keeps tied scores in index order.  Serving keeps
 ``torch.topk``; callers comparing its indices with the JAX package
 compare them outside tie groups only.
+
+Spans (``utils/profiling.py``): ``topk.mask`` around the masking,
+``topk.select`` around the selection, ``eval.metrics`` around an
+evaluation batch's hit/NDCG.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gcn_recommendation_tpu_torch.utils.profiling import span
 
 MASK_VALUE = -1e10  # main.py:424
 
@@ -31,10 +37,11 @@ def compare_max_f(num_items: int) -> int:
 
 
 def _topk(x: torch.Tensor, k: int, stable: bool):
-    if not stable:
-        return torch.topk(x, k, dim=1)
-    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
+    with span("topk.select"):
+        if not stable:
+            return torch.topk(x, k, dim=1)
+        vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
 
 
 def masked_topk(
@@ -63,13 +70,16 @@ def masked_topk(
     if strategy == "auto":
         strategy = "scatter"
     if strategy == "scatter":
-        masked = torch.cat([scores, scores.new_empty((b, 1))], dim=1)
-        masked.scatter_(1, filter_idx, MASK_VALUE)
+        with span("topk.mask"):
+            masked = torch.cat([scores, scores.new_empty((b, 1))], dim=1)
+            masked.scatter_(1, filter_idx, MASK_VALUE)
         return _topk(masked[:, :n], k, stable)
     if strategy == "compare":
-        iota = torch.arange(n, dtype=filter_idx.dtype, device=filter_idx.device)
-        seen = (filter_idx[:, :, None] == iota[None, None, :]).any(dim=1)
-        return _topk(scores.masked_fill(seen, MASK_VALUE), k, stable)
+        with span("topk.mask"):
+            iota = torch.arange(n, dtype=filter_idx.dtype, device=filter_idx.device)
+            seen = (filter_idx[:, :, None] == iota[None, None, :]).any(dim=1)
+            masked = scores.masked_fill(seen, MASK_VALUE)
+        return _topk(masked, k, stable)
     raise ValueError(f"unknown masking strategy {strategy!r}")
 
 
@@ -121,4 +131,5 @@ def topk_eval_batch(user_emb, item_emb, users, true_items, filter_idx, valid, k:
     ``lax.top_k``'s tie order, then its (recall_sum, ndcg_sum, count)."""
     u = user_emb.index_select(0, users)
     _, topk_idx = masked_topk_scores(u, item_emb, filter_idx, k, stable=True)
-    return topk_hit_metrics(topk_idx, true_items, valid)
+    with span("eval.metrics"):
+        return topk_hit_metrics(topk_idx, true_items, valid)

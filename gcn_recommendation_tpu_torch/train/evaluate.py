@@ -6,7 +6,8 @@ last occurrence wins), one propagation per evaluation, and per user
 batch dense scores, seen-item masking, top-k (in ``lax.top_k``'s tie
 order) and hit/NDCG.  The metric is a mean over users, so the filter-
 width tiers only group users into batches of similar padding; sums stay
-on the device and one value per metric comes back to the host.
+on the device and one value per metric comes back to the host (the
+``eval.metrics`` span, as each batch's hit/NDCG in ``ops/topk.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.data.loader import Interactions
 from gcn_recommendation_tpu_torch.data.sampler import membership_arrays, padded_filter_rows
 from gcn_recommendation_tpu_torch.ops.topk import compare_max_f, topk_eval_batch
+from gcn_recommendation_tpu_torch.utils.profiling import span
 
 
 def dedup_eval_users(eval_inter: Interactions) -> Tuple[np.ndarray, np.ndarray]:
@@ -103,7 +105,8 @@ def evaluate_batches(fu, fi, batches, k: int) -> Tuple[float, float]:
     sums = torch.zeros(3, dtype=torch.float32, device=fu.device)
     for users, true_items, filt, valid in batches:
         sums += torch.stack(topk_eval_batch(fu, fi, users, true_items, filt, valid, k))
-    recall_sum, ndcg_sum, count = sums.tolist()
+    with span("eval.metrics"):
+        recall_sum, ndcg_sum, count = sums.tolist()
     if count == 0:
         return 0.0, 0.0
     return recall_sum / count, ndcg_sum / count

@@ -40,6 +40,12 @@ gather knee the graph is source-chunked (``graph_chunking``).
 With ``Config.tile_spmm`` the propagation runs over the block-sparse tile
 partition (``ops/block_spmm.py``, the ``csrc/tile_spmm.cu`` kernel three
 times forward and three times backward per step at 3 layers).
+
+Spans (``utils/profiling.py``): ``train.step`` around a step, inside it
+``train.forward``, ``train.loss`` (the batch's gathers and BPR),
+``train.backward`` and ``train.adam``; ``eval.validate`` around a
+validation.  ``fit`` wraps each epoch in ``trace``, which writes a Chrome
+trace of it, spans included, when ``GCN_TPU_TRACE_DIR`` is set.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches, eval
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
 from gcn_recommendation_tpu_torch.utils import checkpoint as ckpt
 from gcn_recommendation_tpu_torch.utils.logging import Logger
-from gcn_recommendation_tpu_torch.utils.profiling import trace
+from gcn_recommendation_tpu_torch.utils.profiling import span, trace
 
 
 class Trainer:
@@ -174,22 +180,24 @@ class Trainer:
     def batch_loss(self, users, pos, neg, brand_denom=None) -> torch.Tensor:
         """The loss of one batch after a full forward (differentiable)."""
         cfg = self.config
-        fu_all, fi_all, fb_all, u0_all, i0_all = self._forward()
-        fu = fu_all.index_select(0, users)
-        fp = fi_all.index_select(0, pos)
-        fn = fi_all.index_select(0, neg)
-        iu = u0_all.index_select(0, users)
-        ip = i0_all.index_select(0, pos)
-        in_ = i0_all.index_select(0, neg)
-        if cfg.brand_loss and cfg.use_brand:
-            return bpr_loss_reg(
-                fu, fp, fn, iu, ip, in_, cfg.weight_decay,
-                brand_loss=True, final_brand_emb=fb_all,
-                pos_item_brand_idx=self.item_to_brand.index_select(0, pos),
-                neg_item_brand_idx=self.item_to_brand.index_select(0, neg),
-                brand_loss_weight=cfg.brand_loss_weight, brand_denom=brand_denom,
-            )
-        return bpr_loss_reg(fu, fp, fn, iu, ip, in_, cfg.weight_decay)
+        with span("train.forward"):
+            fu_all, fi_all, fb_all, u0_all, i0_all = self._forward()
+        with span("train.loss"):
+            fu = fu_all.index_select(0, users)
+            fp = fi_all.index_select(0, pos)
+            fn = fi_all.index_select(0, neg)
+            iu = u0_all.index_select(0, users)
+            ip = i0_all.index_select(0, pos)
+            in_ = i0_all.index_select(0, neg)
+            if cfg.brand_loss and cfg.use_brand:
+                return bpr_loss_reg(
+                    fu, fp, fn, iu, ip, in_, cfg.weight_decay,
+                    brand_loss=True, final_brand_emb=fb_all,
+                    pos_item_brand_idx=self.item_to_brand.index_select(0, pos),
+                    neg_item_brand_idx=self.item_to_brand.index_select(0, neg),
+                    brand_loss_weight=cfg.brand_loss_weight, brand_denom=brand_denom,
+                )
+            return bpr_loss_reg(fu, fp, fn, iu, ip, in_, cfg.weight_decay)
 
     def _reduce_gradients(self) -> None:
         """Combine the gradients of the ranks that share the step (none
@@ -203,20 +211,24 @@ class Trainer:
         """One Adam step on one batch (int64 index tensors on the device);
         returns the batch loss as a device scalar.  ``step`` names the step
         in the ``debug_nans`` message."""
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.config.debug_nans:
-            with torch.autograd.detect_anomaly():
+        with span("train.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            if self.config.debug_nans:
+                with torch.autograd.detect_anomaly():
+                    loss = self.batch_loss(users, pos, neg)
+                    if not torch.isfinite(loss).item():
+                        raise FloatingPointError(
+                            f"debug_nans: loss {loss.item()} at epoch {self._epoch} step {step}")
+                    with span("train.backward"):
+                        loss.backward()
+            else:
                 loss = self.batch_loss(users, pos, neg)
-                if not torch.isfinite(loss).item():
-                    raise FloatingPointError(
-                        f"debug_nans: loss {loss.item()} at epoch {self._epoch} step {step}")
-                loss.backward()
-        else:
-            loss = self.batch_loss(users, pos, neg)
-            loss.backward()
-        self._reduce_gradients()
-        self.optimizer.step()
-        return self._reduce_loss(loss.detach())
+                with span("train.backward"):
+                    loss.backward()
+            self._reduce_gradients()
+            with span("train.adam"):
+                self.optimizer.step()
+            return self._reduce_loss(loss.detach())
 
     def run_epoch(self) -> np.ndarray:
         """One shuffled epoch; returns the per-step losses."""
@@ -270,14 +282,15 @@ class Trainer:
     @torch.no_grad()
     def validate(self):
         """(Recall@k, NDCG@k) on the val split, train items filtered."""
-        fu, fi, *_ = self._forward_eval()
-        if self._eval_batches is None:
-            b = self.bundle
-            self._eval_batches = build_eval_batches(
-                b.val, b.train, b.num_users, b.num_items,
-                self.config.eval_user_batch, device=self.device,
-            )
-        return evaluate_batches(fu, fi, self._eval_batches, self.config.top_k)
+        with span("eval.validate"):
+            fu, fi, *_ = self._forward_eval()
+            if self._eval_batches is None:
+                b = self.bundle
+                self._eval_batches = build_eval_batches(
+                    b.val, b.train, b.num_users, b.num_items,
+                    self.config.eval_user_batch, device=self.device,
+                )
+            return evaluate_batches(fu, fi, self._eval_batches, self.config.top_k)
 
     def _map_optimizer_tables(self, state_dict, fn):
         """``fn`` (the model's ``pad_state_tree`` or ``unpad_state_tree``)

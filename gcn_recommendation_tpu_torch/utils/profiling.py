@@ -1,79 +1,162 @@
-"""Profiling and tracing hooks.
+"""Spans, counters and the operator's trace.
 
-PyTorch counterpart of ``gcn_recommendation_tpu/utils/profiling.py``:
+* ``span(name)`` — a context manager around one layer's work.  While
+  collection is off (the default) it costs one check of a module flag and
+  hands back a shared no-op object: it allocates, records and
+  synchronises nothing.  While it is on, each span appends a
+  ``SpanRecord`` on exit: its name, its start and end on
+  ``torch.profiler``'s clock (``time.time_ns()``: the profiler's event
+  times are Unix-epoch nanoseconds too, so a span and the events
+  recorded inside it share one timeline), its native thread id and its
+  parent, the innermost span open on the same thread.  Spans time the
+  host's issue of the work and never wait for the device; which device
+  work a span launched is for a trace to say (the launching runtime
+  call's host time falls inside it).  On a card, autograd runs the
+  backward on a thread of its own, so a backward's spans have no parent
+  there: attribution goes by time, not by thread;
+* ``count(name, n)`` — adds ``n`` to a named counter while collection is
+  on; ``collecting()`` says whether it is, for a caller whose ``n`` costs
+  something to work out;
+* ``collect()`` — turns collection on for its body and yields the
+  ``Recorder`` that holds the spans and counter totals;
+* ``trace(name)`` — ``torch.profiler`` around its body when
+  ``GCN_TPU_TRACE_DIR`` is set (the variable the JAX package reads, so
+  one setting serves both; the CLI's ``--profile_dir`` sets it): a Chrome
+  trace under ``$GCN_TPU_TRACE_DIR/<name>/``, in which each span is also a
+  ``record_function`` range.  Nothing at all when the variable is unset.
 
-* ``StepTimer`` — wall-clock timing that waits for the device before it
-  stops the clock: CUDA launches return before the work is done, so
-  ``stop(sync_on=...)`` calls ``torch.cuda.synchronize`` on the device of
-  the tensor (or of the first tensor of a dict, list or tuple) it is
-  given.  A CPU tensor needs no wait;
-* ``trace`` — context manager around ``torch.profiler.profile`` that
-  writes a Chrome trace under ``$GCN_TPU_TRACE_DIR/<name>/`` (the variable
-  the JAX package reads, so one setting serves both; the CLI's
-  ``--profile_dir`` sets it) and does nothing when the variable is unset.
+The port's spans and its counter, by module:
 
-The trainer times its epochs inline (the step losses are fetched at the
-epoch's end); StepTimer is for ad-hoc experiments.
+    train.step, train.forward, train.loss,   train/trainer.py
+    train.backward, train.adam
+    spmm.forward, spmm.backward, spmm.hub,   ops/spmm.py (and the tile
+    spmm.to_device                           path of ops/block_spmm.py)
+    spmm.gathered_rows (counter)             ops/spmm.py
+    eval.validate, eval.metrics              train/trainer.py, train/evaluate.py
+    topk.mask, topk.select, eval.metrics     ops/topk.py
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
 import time
-from typing import List, Optional
+from collections import defaultdict
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
 TRACE_FILE = "trace.json"
 
 
-def _first_tensor(tree) -> Optional[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return tree
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for leaf in tree:
-            found = _first_tensor(leaf)
-            if found is not None:
-                return found
-    return None
+class SpanRecord(NamedTuple):
+    name: str
+    start_ns: int       # time.time_ns(), the profiler's clock
+    end_ns: int
+    tid: int            # threading.get_native_id()
+    id: int             # this span's number, in the order spans opened
+    parent: Optional[int]  # the id of the innermost span open on its thread
 
 
-class StepTimer:
-    """Accumulates per-step durations; waits for the device on stop."""
+@dataclasses.dataclass
+class Recorder:
+    spans: List[SpanRecord] = dataclasses.field(default_factory=list)
+    counters: Dict[str, int] = dataclasses.field(default_factory=lambda: defaultdict(int))
 
-    def __init__(self):
-        self.durations: List[float] = []
-        self._t0: Optional[float] = None
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
+# The collection state: read by every span and counter, set only by
+# collect() and trace().
+_recorder: Optional[Recorder] = None
+_ranges = False        # spans open record_function ranges (inside trace())
+_open = threading.local()  # the spans open on this thread, innermost last
+_ids = itertools.count()
 
-    def stop(self, sync_on=None) -> float:
-        if sync_on is not None:
-            leaf = _first_tensor(sync_on)
-            if leaf is not None and leaf.device.type == "cuda":
-                torch.cuda.synchronize(leaf.device)
-        dt = time.perf_counter() - self._t0
-        self.durations.append(dt)
-        return dt
 
-    @property
-    def mean(self) -> float:
-        return sum(self.durations) / max(1, len(self.durations))
+class _NoSpan:
+    __slots__ = ()
 
-    def best(self, k: int = 3) -> float:
-        """Mean of the k fastest steps (steady-state estimate)."""
-        return sum(sorted(self.durations)[:k]) / max(1, min(k, len(self.durations)))
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "id", "parent", "start", "range")
+
+    def __init__(self, name: str, rec: Recorder):
+        self.name, self.rec = name, rec
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1].id if stack else None
+        self.id = next(_ids)
+        stack.append(self)
+        self.start = time.time_ns()
+        self.range = None
+        if _ranges:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        end = time.time_ns()
+        _open.stack.pop()
+        self.rec.spans.append(SpanRecord(self.name, self.start, end, threading.get_native_id(),
+                                         self.id, self.parent))
+        return False
+
+
+def span(name: str):
+    """A span named ``name`` around the ``with`` block (module docstring)."""
+    if _recorder is None:
+        return _NO_SPAN
+    return _Span(name, _recorder)
+
+
+def collecting() -> bool:
+    return _recorder is not None
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while collection is on."""
+    if _recorder is not None:
+        _recorder.counters[name] += int(n)
+
+
+@contextlib.contextmanager
+def collect(ranges: bool = False):
+    """Collection on for the body; yields the ``Recorder``.  Inside an
+    outer ``collect()`` the outer recorder goes on collecting.  ``ranges``
+    also opens a ``record_function`` range for each span (``trace()``)."""
+    global _recorder, _ranges
+    saved = _recorder, _ranges
+    if _recorder is None:
+        _recorder = Recorder()
+    _ranges = ranges or _ranges
+    try:
+        yield _recorder
+    finally:
+        _recorder, _ranges = saved
 
 
 @contextlib.contextmanager
 def trace(name: str = "train"):
-    """``torch.profiler`` trace if GCN_TPU_TRACE_DIR is set, else no-op.
-    The Chrome trace lands in ``$GCN_TPU_TRACE_DIR/<name>/trace.json``
-    (CPU activity, and CUDA activity when a card is present)."""
+    """``torch.profiler`` trace, with the spans collected and shown as
+    ranges, if GCN_TPU_TRACE_DIR is set, else no-op.  The Chrome trace
+    lands in ``$GCN_TPU_TRACE_DIR/<name>/trace.json`` (CPU activity, and
+    CUDA activity when a card is present)."""
     trace_dir = os.environ.get("GCN_TPU_TRACE_DIR")
     if not trace_dir:
         yield
@@ -85,6 +168,6 @@ def trace(name: str = "train"):
         activities.append(ProfilerActivity.CUDA)
     out_dir = os.path.join(trace_dir, name)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, collect(ranges=True):
         yield
     prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
