@@ -239,7 +239,21 @@ fails:
    by >= 0.9; on ``amazon_books_emb``, ``train --model_name
    LightGCN_Fusion --use_pretrained_emb`` 1 epoch at batch 65,536 on the
    written ``item_embeddings.npy``; ``real_data_dryrun --recipe
-   steam_emb`` on the steam dump (exit 0); no pandas module loaded.
+   steam_emb`` on the steam dump (exit 0); no pandas module loaded;
+18. the masked top-k kernel (``csrc/masked_topk.cu``, ``topk:`` line): a
+   ``Trainer`` on the phase-4 bundle (LightGCN d 64 x 3, seeded weights)
+   validates once, which must launch the kernel once per eval batch; each
+   eval batch's scores from that forward, ranked by the kernel, must equal
+   the plain version (scatter, stable sort) bit for bit, values and
+   indices; so must [1024, N] blocks of random scores with tied levels and
+   filters of 512 ids at N = 91,599 and 200,000; a ``Retriever`` request
+   (``stable=False``) launches none.  Times, CUDA graph replay (``ms``) and
+   eager (``call_ms``), at a [1024, 20000] eval batch of each filter width
+   and at [1024, 200000]: beside the kernel's bound (scores and filter read
+   once, the top-k written once), the plain version and, as
+   ``library_ms``, ``torch.sort(stable=True)`` and ``torch.topk`` of the
+   same block; ``host_call_us``, one call's host time at [64, 2048], where
+   the card waits on the host.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -283,7 +297,7 @@ from gcn_recommendation_tpu_torch.graph.build import build_chunked_ell, build_no
 from gcn_recommendation_tpu_torch.graph.tiles import TILE, partition_tiles
 from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops import block_spmm, quant, spmm
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant, spmm, topk
 from gcn_recommendation_tpu_torch.ops.spmm import (
     propagate_ell,
     to_device_graph,
@@ -489,6 +503,103 @@ def phase_kernel_check(dev):
             })
         del x, out
     print("quantizer: " + json.dumps(record), flush=True)
+    return record
+
+
+def _topk_bound_ms(b: int, n: int, f: int, k: int):
+    """Least time of one masked top-k launch: the [b, n] float32 scores and
+    the [b, f] int64 filter read once, k float32 values and int64 indices a
+    row written once (the selection's operations are far below the bytes)."""
+    nbytes = 4 * b * n + 8 * b * f + 12 * b * k
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _topk_times(scores, filt, what: str) -> dict:
+    """The kernel (graph replay and eager), the plain version and the two
+    library calls on one block, with the kernel's bound."""
+    b, n = scores.shape
+    bound_ms, nbytes = _topk_bound_ms(b, n, filt.shape[1], K)
+    ms = graph_ms(lambda: topk.stable_masked_topk(scores, filt, K))
+    return {
+        "what": what, "shape": [b, n], "filter_width": filt.shape[1], "k": K,
+        "ms": ms,
+        "call_ms": cuda_ms(lambda: topk.stable_masked_topk(scores, filt, K)),
+        "plain_ms": cuda_ms(lambda: topk.masked_topk_plain(scores, filt, K), reps=5),
+        "library_ms_sort": cuda_ms(
+            lambda: torch.sort(scores, dim=1, descending=True, stable=True), reps=5),
+        "library_ms_topk": cuda_ms(lambda: torch.topk(scores, K, dim=1)),
+        "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+        "gb_per_s": nbytes / ms / 1e6,
+    }
+
+
+def _check_topk(scores, filt, k: int, what: str) -> None:
+    v, i = topk.stable_masked_topk(scores, filt, k)
+    v_p, i_p = topk.masked_topk_plain(scores, filt, k)
+    torch.cuda.synchronize()
+    check(torch.equal(i, i_p) and torch.equal(v.view(torch.int32), v_p.view(torch.int32)),
+          f"masked top-k kernel bit-equal to plain: {what}")
+
+
+def phase_topk(dev, bundle):
+    """The masked top-k kernel on the validation path and at the large
+    catalogs: launches, bit-equality with the plain version, times."""
+    t0 = time.perf_counter()
+    record = {
+        "name": "stable_masked_topk", "route": "cuda",
+        "source": "gcn_recommendation_tpu_torch/csrc/masked_topk.cu",
+        "replaces": None,  # lax.top_k's order, which the port got from a full stable sort
+    }
+    cfg = Config(embedding_dim=64, n_layers=3)
+    model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=dev)
+    params = model.init(torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, model, bundle)
+    before = topk.stable_masked_topk.launches
+    recall, ndcg = tr.validate()
+    batches = tr._eval_batches
+    record["launches_validate"] = topk.stable_masked_topk.launches - before
+    check(record["launches_validate"] == len(batches),
+          f"validate launches the top-k kernel once per eval batch ({len(batches)})")
+    check(0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0, f"validate: R@20 {recall:.4f}")
+    with torch.no_grad():
+        fu, fi = tr._forward_eval()[:2]
+    widest = {}
+    for users, _, filt, _ in batches:
+        scores = fu.index_select(0, users) @ fi.T
+        _check_topk(scores, filt, K, f"eval batch {tuple(scores.shape)}, F = {filt.shape[1]}")
+        widest[filt.shape[1]] = (scores, filt)
+    record["eval_filter_widths"] = sorted(widest)
+    record["times"] = [_topk_times(*widest[f], what="eval batch") for f in sorted(widest)]
+    del widest, scores
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in (91_599, 200_000):
+        scores = (torch.randn((1024, n), generator=gen, device=dev) * 8).round() / 8
+        filt = torch.randint(0, n, (1024, 512), generator=gen, device=dev)
+        filt[:, 256:] = n
+        _check_topk(scores, filt, K, f"[1024, {n}], F = 512, tied levels")
+        _check_topk(scores, filt, 100, f"[1024, {n}], F = 512, k = 100")
+        if n == 200_000:
+            record["times"].append(_topk_times(scores, filt, what="north-star catalog"))
+        del scores, filt
+    # the host's share of a call: at a small block the card waits on the host
+    small = torch.randn((64, 2048), generator=gen, device=dev)
+    for _ in range(20):
+        topk.stable_masked_topk(small, None, K)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2000):
+        topk.stable_masked_topk(small, None, K)
+    torch.cuda.synchronize()
+    record["host_call_us"] = (time.perf_counter() - t) / 2000 * 1e6
+    record["host_call_shape"] = [64, 2048]
+    r = Retriever.from_params(model, params, bundle)
+    before = topk.stable_masked_topk.launches
+    r.recommend(np.arange(64), k=K)
+    record["launches_serving"] = topk.stable_masked_topk.launches - before
+    check(record["launches_serving"] == 0, "serving's torch.topk path launches no top-k kernel")
+    record["seconds"] = time.perf_counter() - t0
+    print("topk: " + json.dumps(record), flush=True)
     return record
 
 
@@ -2949,8 +3060,8 @@ def phase_tools(dev):
                                       for c in res["cases"]]}
 
     res, _, sec = _tool(exp_topk_mask, ["--filters", "8"])
-    check(len(res["rows"]) == 6 and all(np.isfinite(v) for v in res["rows"].values()),
-          "exp_topk_mask at F = 8: fixup and compare exact against scatter; 6 rows timed")
+    check(len(res["rows"]) == 7 and all(np.isfinite(v) for v in res["rows"].values()),
+          "exp_topk_mask at F = 8: fixup and compare exact against scatter; 7 rows timed")
     rec["exp_topk_mask"] = {"seconds": round(sec, 1),
                             "ms": {f"{f}:{n}": v for (f, n), v in res["rows"].items()}}
 
@@ -3529,6 +3640,7 @@ def main() -> int:
     tools_launches = phase_tools(dev)
     phase_studies(dev)
     review_launches = phase_review_dumps()
+    topk_record = phase_topk(dev, bundle)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -3560,7 +3672,8 @@ def main() -> int:
     tile_record["launches_review_path"] = review_launches["tile_matvec"]
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record]}),
+    print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record,
+                                  topk_record]}),
           flush=True)
     print(json.dumps({
         "ok": True,

@@ -63,6 +63,19 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "masked_topk": {
+        # scores, filter, rows, n, f, k, s, vec, threads, mask_value, out_val,
+        # out_idx, stream
+        "masked_topk_launch": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "masked_topk_smem_bytes": (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int64,
+        ),
+    },
     "tile_gather_spmm": {
         "tile_gather_spmm_launch": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

@@ -12,13 +12,16 @@ users, I = 20,000 items, d = 64, k = 20; filter widths F = 8, 32, 128 and
             list masked by comparison, top-k again
   nomask    top-k without a mask
 
-The selection is the port's own: ``ops/topk.py::_topk`` with ``stable``,
-the stable descending sort that evaluation runs for ``lax.top_k``'s tie
+The selection is the plain version's: ``ops/topk.py::_topk`` with
+``stable``, the stable descending sort that gives ``lax.top_k``'s tie
 order.  The tool also times ``torch.topk`` in its place (``scatter
-torch.topk``, ``nomask torch.topk``), the selection serving runs.  Before
-timing, fixup and compare are checked against scatter (same items, values
-within rtol 1e-6); compare is skipped from F >= 512 as in the JAX tool
-(its [B, F, I] intermediate alone is 21 GB at F = 1024).
+torch.topk``, ``nomask torch.topk``), the selection serving runs, and
+``kernel``: ``stable_masked_topk``, what evaluation runs (on the card the
+kernel ``csrc/masked_topk.cu``, masking and selection in one launch; on
+the CPU the plain scatter version again).  Before timing, fixup and
+compare are checked against scatter (same items, values within rtol
+1e-6); compare is skipped from F >= 512 as in the JAX tool (its [B, F, I]
+intermediate alone is 21 GB at F = 1024).
 
 ``COMPARE_MAX_WORK`` (``ops/topk.py``) is the JAX package's crossover
 between compare and scatter on a TPU; this measures it on the card.
@@ -36,7 +39,12 @@ import argparse
 import numpy as np
 import torch
 
-from gcn_recommendation_tpu_torch.ops.topk import MASK_VALUE, _topk, masked_topk
+from gcn_recommendation_tpu_torch.ops.topk import (
+    MASK_VALUE,
+    _topk,
+    masked_topk_plain,
+    stable_masked_topk,
+)
 
 B, I, D, K = 1024, 20_000, 64, 20
 FILTERS = (8, 32, 128, 1024)
@@ -45,11 +53,11 @@ COMPARE_TIMED_BELOW = 512
 
 
 def mask_scatter(scores, filt, k, stable=True):
-    return masked_topk(scores, filt, k, strategy="scatter", stable=stable)
+    return masked_topk_plain(scores, filt, k, strategy="scatter", stable=stable)
 
 
 def mask_compare(scores, filt, k, stable=True):
-    return masked_topk(scores, filt, k, strategy="compare", stable=stable)
+    return masked_topk_plain(scores, filt, k, strategy="compare", stable=stable)
 
 
 def mask_fixup(scores, filt, k, stable=True):
@@ -65,8 +73,12 @@ def nomask(scores, filt, k, stable=True):
     return _topk(scores, k, stable)
 
 
+def kernel(scores, filt, k, stable=True):
+    return stable_masked_topk(scores, filt, k)
+
+
 STRATEGIES = {"scatter": mask_scatter, "compare": mask_compare, "fixup": mask_fixup,
-              "nomask": nomask}
+              "nomask": nomask, "kernel": kernel}
 
 
 def filter_rows(rng, b: int, n: int, f: int) -> np.ndarray:

@@ -33,7 +33,10 @@ The port's spans and its counter, by module:
     spmm.to_device                           path of ops/block_spmm.py)
     spmm.gathered_rows (counter)             ops/spmm.py
     eval.validate, eval.metrics              train/trainer.py, train/evaluate.py
-    topk.mask, topk.select, eval.metrics     ops/topk.py
+    topk.mask, topk.select, eval.metrics     ops/topk.py (topk.mask: the plain
+                                             version only; on a card the
+                                             kernel masks inside topk.select)
+    topk.kernel_rows (counter)               ops/topk.py
 """
 
 from __future__ import annotations

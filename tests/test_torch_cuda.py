@@ -17,7 +17,7 @@ from gcn_recommendation_tpu_torch.config import Config
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops import block_spmm, quant
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant, topk
 from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles
@@ -514,3 +514,159 @@ def test_default_trainer_fuses_on_card(card, bundle, tmp_path):
         neg = torch.from_numpy(rng.integers(0, bundle.num_items, 256)).to(dev)
         losses[str(dev)] = float(tr.train_step(users, pos, neg))
     np.testing.assert_allclose(losses[str(card)], losses["cpu"], rtol=1e-5)
+
+
+# ------------------------------------------------ the masked top-k kernel
+
+
+def _topk_inputs(card, b, n, f, seed, kind="normal"):
+    """Scores [b, n] on the card (``kind``: normal; ``ties``, seven levels;
+    ``zeros``, -0.0 / +0.0 / +-1) and filter ids [b, f] with about half of
+    each row the pad n (duplicates kept: the mask takes them)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    if kind == "ties":
+        scores = torch.randint(-3, 4, (b, n), generator=gen, device=card).float() * 0.5
+    elif kind == "zeros":
+        levels = torch.tensor([-0.0, 0.0, -1.0, -2.0], device=card)
+        scores = levels[torch.randint(0, 4, (b, n), generator=gen, device=card)]
+    else:
+        scores = torch.randn((b, n), generator=gen, device=card)
+    filt = torch.randint(0, n, (b, f), generator=gen, device=card)
+    filt[torch.rand((b, f), generator=gen, device=card) < 0.5] = n
+    filt[0] = n  # an all-pad row
+    return scores, filt
+
+
+def _bits(v):
+    return v.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("b,n,f,k,kind", [
+    # the evaluation's batches: [1024, 20000], k = 20, the books tiers' filter widths
+    (1024, 20_000, 64, 20, "normal"), (1024, 20_000, 128, 20, "normal"),
+    (1024, 20_000, 512, 20, "normal"), (1024, 20_000, 2048, 20, "normal"),
+    # the large catalogs (the paper's Amazon-Book, the north star)
+    (64, 91_599, 128, 20, "normal"), (32, 200_000, 512, 20, "normal"),
+    (16, 200_000, 64, 100, "ties"),
+    # planted ties, k at its ends, rows of fewer than k unmasked items
+    (256, 20_000, 512, 20, "ties"), (64, 20_000, 64, 1, "ties"),
+    (64, 20_000, 64, 1024, "ties"), (128, 5_000, 9_000, 100, "normal"),
+    (64, 1_001, 64, 20, "ties"), (8, 37, 60, 20, "normal"), (3, 20_000, 0, 20, "normal"),
+])
+def test_masked_topk_kernel_bit_equal_to_plain_on_card(card, b, n, f, k, kind):
+    scores, filt = _topk_inputs(card, b, n, f, seed=n + f + k, kind=kind)
+    before = topk.stable_masked_topk.launches
+    v, i = topk.masked_topk(scores, filt, k, stable=True)
+    assert topk.stable_masked_topk.launches == before + 1
+    v_p, i_p = topk.masked_topk_plain(scores, filt, k)
+    torch.cuda.synchronize()
+    assert v.shape == (b, min(k, n)) and i.dtype == torch.int64
+    assert torch.equal(i, i_p) and torch.equal(_bits(v), _bits(v_p))
+
+
+def test_masked_topk_kernel_signed_zeros_and_odd_bases_on_card(card):
+    """-0.0 and +0.0 tie as one value and keep their sign (against the plain
+    version on the CPU: the stable sort there compares, it keeps the
+    bits); a row length that is no multiple of 4, or a base that is not
+    16-byte aligned, takes the kernel's scalar loads and gives the same."""
+    scores, filt = _topk_inputs(card, 256, 4_000, 64, seed=5, kind="zeros")
+    v, i = topk.stable_masked_topk(scores, filt, 100)
+    v_c, i_c = topk.masked_topk_plain(scores.cpu(), filt.cpu(), 100)
+    assert torch.equal(i.cpu(), i_c) and torch.equal(_bits(v.cpu()), _bits(v_c))
+    assert (v == 0).any() and torch.signbit(v[v == 0]).any()
+    for b, n in ((64, 20_001), (64, 20_000)):
+        flat = torch.randn(b * n + 1, device=card)
+        x = flat[1:].view(b, n) if n % 4 == 0 else flat[: b * n].view(b, n)
+        assert n % 4 or x.data_ptr() % 16 == 4
+        _, filt = _topk_inputs(card, b, n, 64, seed=n)
+        v, i = topk.stable_masked_topk(x, filt, 20)
+        v_p, i_p = topk.masked_topk_plain(x, filt, 20)
+        assert torch.equal(i, i_p) and torch.equal(_bits(v), _bits(v_p))
+
+
+def test_masked_topk_kernel_merge_and_sharded_shapes_on_card(card):
+    """``merge_topk_candidates`` ([B, m * k] rows, no mask) and
+    ``_mask_local_topk`` (the second of two item shards, ``num_valid_items``
+    below the padded catalog) on the card equal their plain runs on the
+    CPU, each through one launch."""
+    from types import SimpleNamespace
+
+    from gcn_recommendation_tpu_torch.core.mesh import MODEL_AXIS
+    from gcn_recommendation_tpu_torch.parallel.spmd import _mask_local_topk
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    vals = (torch.randint(-2, 3, (4, 1024, 20), generator=gen, device=card) * 0.25).float()
+    vals = vals.sort(dim=2, descending=True).values
+    idx = torch.randint(0, 20_000, (4, 1024, 20), generator=gen, device=card)
+    before = topk.stable_masked_topk.launches
+    v, i = topk.merge_topk_candidates(vals, idx, 20)
+    assert topk.stable_masked_topk.launches == before + 1
+    v_c, i_c = topk.merge_topk_candidates(vals.cpu(), idx.cpu(), 20)
+    assert torch.equal(i.cpu(), i_c) and torch.equal(_bits(v.cpu()), _bits(v_c))
+
+    mesh = SimpleNamespace(shape={MODEL_AXIS: 2}, coordinate=lambda axis: 1)
+    shard_items, num_valid = 10_008, 2 * 10_008 - 13
+    scores, _ = _topk_inputs(card, 1024, shard_items, 1, seed=4, kind="ties")
+    filt = torch.randint(0, num_valid, (1024, 128), generator=gen, device=card)
+    filt[:, 64:] = num_valid  # global pads
+    before = topk.stable_masked_topk.launches
+    v, i = _mask_local_topk(scores, filt, 20, mesh, num_valid_items=num_valid, stable=True)
+    assert topk.stable_masked_topk.launches == before + 1
+    v_c, i_c = _mask_local_topk(scores.cpu(), filt.cpu(), 20, mesh, num_valid_items=num_valid,
+                                stable=True)
+    assert torch.equal(i.cpu(), i_c) and torch.equal(_bits(v.cpu()), _bits(v_c))
+
+
+def test_masked_topk_kernel_refuses_what_it_cannot_take_on_card(card):
+    from gcn_recommendation_tpu_torch.kernels._build import load_library
+
+    lib = load_library("masked_topk")
+    for n, k in ((20_000, 20), (200_000, 20), (91_599, 1024), (37, 20)):
+        s, _ = topk.kernel_plan(n, k, 4 if n % 4 == 0 else 1)
+        assert lib.masked_topk_smem_bytes(n, k, s) == topk.kernel_smem_bytes(n, k, s)
+    x = torch.zeros((2, 2_000), device=card)
+    with pytest.raises(ValueError, match="k up to 1024"):
+        topk.stable_masked_topk(x, None, 1_025)
+    with pytest.raises(ValueError, match="int64"):
+        topk.stable_masked_topk(x, torch.zeros((2, 3), dtype=torch.int32, device=card), 5)
+    with pytest.raises(ValueError, match="2-D float32"):
+        topk.stable_masked_topk(x.half(), None, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk.stable_masked_topk(torch.zeros((1, 4_000_000), device=card), None, 20)
+    before = topk.stable_masked_topk.launches
+    v, i = topk.stable_masked_topk(torch.zeros((0, 50), device=card), None, 20)
+    assert v.shape == (0, 20) and topk.stable_masked_topk.launches == before
+
+
+def test_validate_launches_the_topk_kernel_once_per_eval_batch_on_card(card, bundle):
+    """``Trainer.validate`` ranks each eval batch through one launch (the
+    ``topk.kernel_rows`` counter counts their rows) and gives the metrics
+    of the plain version on the same embeddings; serving's ``stable=False``
+    path launches none."""
+    from gcn_recommendation_tpu_torch.utils import profiling
+
+    cfg = Config(embedding_dim=32, n_layers=3, eval_user_batch=256)
+    m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                              device=card)
+    params = m.init(torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, m, bundle)
+    before = topk.stable_masked_topk.launches
+    with profiling.collect() as rec:
+        got = tr.validate()
+    batches = tr._eval_batches
+    assert len(batches) > 1
+    assert topk.stable_masked_topk.launches - before == len(batches)
+    assert rec.counters["topk.kernel_rows"] == sum(int(bt[0].shape[0]) for bt in batches)
+    with torch.no_grad():
+        fu, fi = tr._forward_eval()[:2]
+        sums = torch.zeros(3, device=card)
+        for users, true_items, filt, valid in batches:
+            scores = fu.index_select(0, users).float() @ fi.float().T
+            _, idx = topk.masked_topk_plain(scores, filt, cfg.top_k)
+            sums += torch.stack(topk.topk_hit_metrics(idx, true_items, valid))
+    recall, ndcg, n = sums.tolist()
+    np.testing.assert_allclose(got, (recall / n, ndcg / n), rtol=1e-6)
+    r = Retriever.from_params(m, params, bundle)
+    before = topk.stable_masked_topk.launches
+    r.recommend(np.unique(bundle.train.user_idx)[:64], k=20)
+    assert topk.stable_masked_topk.launches == before
