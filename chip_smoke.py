@@ -253,7 +253,21 @@ fails:
    once, the top-k written once), the plain version and, as
    ``library_ms``, ``torch.sort(stable=True)`` and ``torch.topk`` of the
    same block; ``host_call_us``, one call's host time at [64, 2048], where
-   the card waits on the host.
+   the card waits on the host;
+19. the hit histogram kernel (the second kernel of ``csrc/masked_topk.cu``,
+   ``hit_histogram:`` line): a ``Trainer`` on the phase-4 bundle (the books
+   shapes; LightGCN d 64 x 3, seeded weights) validates once, then once more
+   under ``torch.profiler`` (CUDA activity), which must launch the kernel
+   once per eval batch; the line gives that pass's device operations in
+   all and by name.  Each eval batch's top-k, and random top-k blocks with pad
+   rows and misses at [1024, 20], [4096, 20] and [4096, 1024], reduced by
+   the kernel, must equal the plain version count for count.  Times at
+   [1024, 20] and [4096, 20]: CUDA graph replay (``ms``) and eager
+   (``call_ms``), beside the bound (the top-k, the held-out items and the
+   valid flags read once, the counts written once), the plain version
+   (``plain_ms``: one ``bincount`` and its operands) and the eager lines
+   it replaced (``topk_hit_metrics_ms``: ``topk_hit_metrics``, the stack
+   and the sum).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -600,6 +614,99 @@ def phase_topk(dev, bundle):
     check(record["launches_serving"] == 0, "serving's torch.topk path launches no top-k kernel")
     record["seconds"] = time.perf_counter() - t0
     print("topk: " + json.dumps(record), flush=True)
+    return record
+
+
+def _hist_bound_ms(b: int, k: int):
+    """Least time of one hit histogram launch: the [b, k] int64 top-k, the
+    [b] int64 held-out items and [b] bool flags read once, k + 1 int32
+    counts written once."""
+    nbytes = 8 * b * k + 9 * b + 4 * (k + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _check_hist(idx, true, valid, k: int, what: str) -> None:
+    hist = topk.hit_histogram(idx, true, valid, k)
+    plain = topk.hit_histogram_plain(idx, true, valid, k)
+    torch.cuda.synchronize()
+    check(torch.equal(hist, plain), f"hit histogram kernel equal to plain: {what}")
+
+
+def _random_topk_batch(gen, dev, b: int, k: int, n: int = 20_000):
+    """Distinct top-k ids a row, held-out items hitting at a random column
+    (70%) or missing, a third of the rows pad."""
+    idx = torch.rand((b, n), generator=gen, device=dev).argsort(dim=1)[:, :k].contiguous()
+    pos = torch.randint(0, k, (b, 1), generator=gen, device=dev)
+    true = torch.where(torch.rand(b, generator=gen, device=dev) < 0.7, idx.gather(1, pos)[:, 0],
+                       torch.full((b,), n, device=dev))
+    return idx, true, torch.rand(b, generator=gen, device=dev) < 0.67
+
+
+def phase_hit_histogram(dev, bundle):
+    """The hit histogram kernel on the validation path: its launches and
+    a validation pass's device operations (``torch.profiler``), equality
+    with the plain version, times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    record = {
+        "name": "hit_histogram", "route": "cuda",
+        "source": "gcn_recommendation_tpu_torch/csrc/masked_topk.cu",
+        "replaces": None,  # topk_hit_metrics' eager lines, ~18 launches a batch
+    }
+    cfg = Config(embedding_dim=64, n_layers=3)
+    model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                                  device=dev)
+    model.init(torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, model, bundle)
+    tr.validate()
+    torch.cuda.synchronize()
+    batches = tr._eval_batches
+    before = topk.hit_histogram.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        recall, ndcg = tr.validate()
+        torch.cuda.synchronize()
+    record["launches_validate"] = topk.hit_histogram.launches - before
+    check(record["launches_validate"] == len(batches),
+          f"validate launches the hit histogram kernel once per eval batch ({len(batches)})")
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for name in names:
+        by_name[name] = by_name.get(name, 0) + 1
+    record["eval_batches"] = len(batches)
+    record["device_ops_per_pass"] = len(names)
+    record["device_ops_by_name"] = sorted(by_name.items(), key=lambda x: -x[1])[:12]
+    record["recall_ndcg"] = [recall, ndcg]
+    hist_ops = sum(c for n, c in by_name.items() if "topk_hit_histogram_kernel" in n)
+    check(hist_ops == len(batches),
+          f"the profiler sees {hist_ops} hit histogram kernels in a pass of {len(batches)} batches")
+    with torch.no_grad():
+        fu, fi = tr._forward_eval()[:2]
+        for users, true_items, filt, valid in batches:
+            _, idx = topk.masked_topk_scores(fu.index_select(0, users), fi, filt, K, stable=True)
+            _check_hist(idx, true_items, valid, K, f"eval batch {tuple(idx.shape)}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    record["times"] = []
+    for b, k in ((1024, 20), (4096, 20), (4096, 1024)):
+        idx, true, valid = _random_topk_batch(gen, dev, b, k)
+        _check_hist(idx, true, valid, k, f"random top-k [{b}, {k}]")
+        if k != K:
+            continue
+        bound_ms, nbytes = _hist_bound_ms(b, k)
+        sums = torch.zeros(3, device=dev)
+        ms = graph_ms(lambda: topk.hit_histogram(idx, true, valid, k))
+        record["times"].append({
+            "shape": [b, k], "ms": ms,
+            "call_ms": cuda_ms(lambda: topk.hit_histogram(idx, true, valid, k)),
+            "plain_ms": cuda_ms(lambda: topk.hit_histogram_plain(idx, true, valid, k)),
+            "topk_hit_metrics_ms": cuda_ms(
+                lambda: sums.add_(torch.stack(topk.topk_hit_metrics(idx, true, valid)))),
+            "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+            "gb_per_s": nbytes / ms / 1e6,
+        })
+    record["seconds"] = time.perf_counter() - t0
+    print("hit_histogram: " + json.dumps(record), flush=True)
     return record
 
 
@@ -3641,6 +3748,7 @@ def main() -> int:
     phase_studies(dev)
     review_launches = phase_review_dumps()
     topk_record = phase_topk(dev, bundle)
+    hist_record = phase_hit_histogram(dev, bundle)
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -3673,7 +3781,7 @@ def main() -> int:
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record,
-                                  topk_record]}),
+                                  topk_record, hist_record]}),
           flush=True)
     print(json.dumps({
         "ok": True,

@@ -46,6 +46,10 @@
 // and the block size from (N, k): S near sqrt(N / k), so the groups and the
 // candidates are both few, within the shared memory a block may hold.
 // One block a row; nothing is carried between blocks.
+//
+// A second kernel, topk_hit_histogram_kernel (at the end of this file),
+// reduces an evaluation batch's top-k indices to the histogram of the
+// held-out items' positions; it shares this library, so it adds no build.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -366,4 +370,86 @@ extern "C" int masked_topk_launch(const void* scores, const void* filter, long l
                      mask_value, (float*)out_val, (int64_t*)out_idx, smem, stream);
   return launch<1>((const float*)scores, (const int64_t*)filter, rows, n, f, k, s, threads,
                    mask_value, (float*)out_val, (int64_t*)out_idx, smem, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Hit histogram of an evaluation batch (ops/topk.py::hit_histogram).
+//
+// Replaces no Pallas kernel: the JAX package forms each batch's hit and NDCG
+// sums with XLA's element-wise ops and reductions, which the port ran as ~18
+// eager launches a batch (ops/topk.py::topk_hit_metrics, now the plain
+// reference).  Contract, for topk_idx [rows, width] int64, true_items [rows]
+// int64 and valid [rows] bool, width <= k:
+//   * hist[p], p < k: the valid rows whose held-out item first equals
+//     topk_idx [row, p] (a held-out item that was masked counts where it
+//     stands, as the plain version counts it);
+//   * hist[k]: the valid rows.  Rows with valid false count nowhere.
+// The counts are exact integers, the same whatever order the threads run in;
+// the host forms Recall@k and NDCG@k from a pass's summed histogram.
+//
+// Bound: latency.  An evaluation batch's input is 1024 x 20 x 8 bytes and
+// 9 KB more (~0.05 us of the card's bandwidth); one block waits on its round
+// trips to memory and on its SM's issue rate.  So: a row a thread
+// (grid-striding), a pad row left before any load of its indices, kHistChunk
+// of a row's indices loaded before they are compared, no division; the
+// counts in shared memory, all k + 1 written at the end, so the output needs
+// no zeroing launch.  On an H100 this form took 4.7 us at [1024, 20] (a
+// launch that does nothing ~1.5), against 6.4 for the same with 16 indices a
+// chunk and pad rows loaded, and 10.8 for a coalesced walk of the flat
+// [rows * width] block (a division a element, a shared first-column array).
+
+namespace {
+
+constexpr int kHistThreads = 1024;
+constexpr int kHistChunk = 8;
+constexpr int kHistMaxK = 1024;  // ops/topk.py::MAX_K
+
+__global__ void __launch_bounds__(kHistThreads)
+topk_hit_histogram_kernel(const int64_t* __restrict__ topk_idx,
+                          const int64_t* __restrict__ true_items,
+                          const uint8_t* __restrict__ valid, long long rows, int width, int k,
+                          int32_t* __restrict__ hist_out) {
+  __shared__ uint32_t hist[kHistMaxK + 1];
+  for (int j = threadIdx.x; j <= k; j += blockDim.x) hist[j] = 0u;
+  __syncthreads();
+  uint32_t valid_rows = 0;
+  for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
+    if (!valid[r]) continue;
+    ++valid_rows;
+    const int64_t t = true_items[r];
+    const int64_t* row = topk_idx + r * width;
+    int pos = width;
+    for (int p0 = 0; p0 < width && pos == width; p0 += kHistChunk) {
+      int64_t v[kHistChunk];
+#pragma unroll
+      for (int u = 0; u < kHistChunk; ++u) v[u] = p0 + u < width ? row[p0 + u] : 0;
+      // downwards, so the first equal index in the chunk is the one kept
+#pragma unroll
+      for (int u = kHistChunk - 1; u >= 0; --u)
+        if (p0 + u < width && v[u] == t) pos = p0 + u;
+    }
+    if (pos < width) atomicAdd(&hist[pos], 1u);
+  }
+  // every lane of every warp reaches this (blockDim is a multiple of 32)
+  valid_rows = __reduce_add_sync(kFull, valid_rows);
+  if ((threadIdx.x & 31) == 0 && valid_rows) atomicAdd(&hist[k], valid_rows);
+  __syncthreads();
+  for (int j = threadIdx.x; j <= k; j += blockDim.x) hist_out[j] = (int32_t)hist[j];
+}
+
+}  // namespace
+
+// Launch on `stream`; returns a CUDA error code (0 on success), or -1 for
+// arguments the kernel does not take.  topk_idx [rows, width] int64,
+// true_items [rows] int64, valid [rows] bool (one byte each), contiguous, on
+// one device; hist [k + 1] int32, every entry written; 0 <= width <= k <=
+// 1024.  Rows may be 0 (the histogram is then all zeros).
+extern "C" int topk_hit_histogram_launch(const void* topk_idx, const void* true_items,
+                                         const void* valid, long long rows, int width, int k,
+                                         void* hist, void* stream_ptr) {
+  if (rows < 0 || width < 0 || width > k || k > kHistMaxK) return -1;
+  topk_hit_histogram_kernel<<<1, kHistThreads, 0, (cudaStream_t)stream_ptr>>>(
+      (const int64_t*)topk_idx, (const int64_t*)true_items, (const uint8_t*)valid, rows, width,
+      k, (int32_t*)hist);
+  return (int)cudaGetLastError();
 }

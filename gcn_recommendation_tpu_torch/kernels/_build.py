@@ -75,6 +75,12 @@ _SIGNATURES = {
         "masked_topk_smem_bytes": (
             [ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_int64,
         ),
+        # topk_idx, true_items, valid, rows, width, k, hist, stream
+        "topk_hit_histogram_launch": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
     },
     "tile_gather_spmm": {
         "tile_gather_spmm_launch": (

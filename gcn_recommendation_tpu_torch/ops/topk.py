@@ -21,11 +21,18 @@ evaluation (``topk_eval_batch``) selects with ``stable=True``: the order
 * ``masked_topk`` — ``stable=True`` goes through ``stable_masked_topk``;
   ``stable=False`` (serving) is ``torch.topk``, whose indices callers
   comparing with the JAX package compare outside tie groups only.
+* ``hit_histogram`` — an evaluation batch's top-k reduced to the exact
+  histogram of the held-out items' positions: on a CUDA tensor one launch
+  of the second kernel of ``csrc/masked_topk.cu``, on a CPU tensor
+  ``hit_histogram_plain``.  ``topk_eval_batch`` returns it; the caller
+  sums a pass's histograms and forms Recall@k and NDCG@k from the sum
+  (``train/evaluate.py``).  ``topk_hit_metrics`` is its float reference.
 
-Spans and counter (``utils/profiling.py``): ``topk.select`` around the
+Spans and counters (``utils/profiling.py``): ``topk.select`` around the
 selection (the kernel's launch on the card), ``topk.mask`` around the
 plain version's masking, ``eval.metrics`` around an evaluation batch's
-hit/NDCG; ``topk.kernel_rows`` counts the rows the kernel ranks.
+hit histogram; ``topk.kernel_rows`` counts the rows the top-k kernel
+ranks, ``eval.hist_rows`` the rows the histogram kernel reduces.
 """
 
 from __future__ import annotations
@@ -135,21 +142,36 @@ def kernel_plan(n: int, k: int, vec: int) -> Tuple[int, int]:
     return best[1], 256 if n > 2048 else 64
 
 
-# the bound launcher of csrc/masked_topk.cu and the stream lookup, both set
-# at the first launch
-_launcher = None
+# the bound launchers of csrc/masked_topk.cu (top-k, hit histogram) and the
+# stream lookup, all set at the first launch
+_launchers = None
 _raw_stream = None
 
 
-def _bound_launcher():
-    global _launcher, _raw_stream
-    if _launcher is None:
+def _bound_launchers():
+    global _launchers, _raw_stream
+    if _launchers is None:
         from gcn_recommendation_tpu_torch.kernels._build import load_library
 
         _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
             lambda index: torch.cuda.current_stream(index).cuda_stream)
-        _launcher = load_library("masked_topk").masked_topk_launch
-    return _launcher
+        lib = load_library("masked_topk")
+        _launchers = (lib.masked_topk_launch, lib.topk_hit_histogram_launch)
+    return _launchers
+
+
+def _launch(which: int, device: torch.device, args, what: str) -> None:
+    """Launcher ``which`` of ``_bound_launchers`` on ``device``'s current
+    stream; raises when the launch is refused."""
+    fn = (_launchers or _bound_launchers())[which]
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _launch_masked_topk(scores: torch.Tensor, filter_idx: Optional[torch.Tensor], k: int):
@@ -186,15 +208,7 @@ def _launch_masked_topk(scores: torch.Tensor, filter_idx: Optional[torch.Tensor]
     s, threads = kernel_plan(n, k, vec)
     args = (scores.data_ptr(), filter_ptr, b, n, f, k, s, vec, threads, MASK_VALUE,
             vals.data_ptr(), idx.data_ptr())
-    fn = _launcher or _bound_launcher()
-    index = scores.device.index
-    if index == torch.cuda.current_device():
-        err = fn(*args, _raw_stream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, _raw_stream(index))
-    if err != 0:
-        raise RuntimeError(f"masked top-k kernel launch failed: CUDA error {err}")
+    _launch(0, scores.device, args, "masked top-k")
     stable_masked_topk.launches += 1
     count("topk.kernel_rows", b)
     return vals, idx
@@ -262,7 +276,9 @@ def masked_topk_scores(
 def topk_hit_metrics(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: torch.Tensor):
     """(recall_sum, ndcg_sum, count) of a top-k index batch against the
     leave-one-out held-out items (main.py:430-438: recall = hit
-    indicator, ndcg = 1/log2(pos+2) on a hit), over the ``valid`` rows."""
+    indicator, ndcg = 1/log2(pos+2) on a hit), over the ``valid`` rows.
+    The float reference of ``hit_histogram``; the multi-rank sharded
+    evaluation (``parallel/spmd.py::evaluate_sharded``) still sums it."""
     hit_matrix = topk_idx == true_items[:, None]
     hit = hit_matrix.any(dim=1)
     pos = hit_matrix.int().argmax(dim=1)
@@ -271,6 +287,67 @@ def topk_hit_metrics(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: to
     )
     validf = valid.float()
     return (hit.float() * validf).sum(), (ndcg * validf).sum(), validf.sum()
+
+
+def hit_histogram_plain(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """``hit_histogram`` in plain PyTorch, on any device: ``topk_hit_metrics``'
+    hit and position, then one ``bincount``."""
+    hit_matrix = topk_idx == true_items[:, None]
+    hit = hit_matrix.any(dim=1) & valid
+    if topk_idx.shape[1]:
+        pos = hit_matrix.int().argmax(dim=1)
+    else:  # no column: argmax has nothing to reduce, and nothing hits
+        pos = torch.zeros_like(true_items)
+    counts = torch.bincount(torch.where(hit, pos, k), minlength=k + 1)
+    return torch.cat([counts[:k], valid.sum().reshape(1)]).int()
+
+
+def _launch_hit_histogram(topk_idx: torch.Tensor, true_items: torch.Tensor,
+                          valid: torch.Tensor, k: int) -> torch.Tensor:
+    """One launch of csrc/masked_topk.cu's hit histogram on ``topk_idx``'s
+    device and the calling thread's current stream; raises when the kernel
+    cannot take the arguments or the launch is refused."""
+    if topk_idx.dtype != torch.int64 or topk_idx.dim() != 2:
+        raise ValueError(f"hit histogram kernel takes 2-D int64 top-k indices, got "
+                         f"{topk_idx.dtype} {tuple(topk_idx.shape)}")
+    b, width = topk_idx.shape
+    for name, t, dtype in (("true_items", true_items, torch.int64), ("valid", valid, torch.bool)):
+        if t.dtype != dtype or tuple(t.shape) != (b,) or t.device != topk_idx.device:
+            raise ValueError(f"hit histogram kernel takes {name} as {dtype} [{b}] on "
+                             f"{topk_idx.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not width <= k <= MAX_K:
+        raise ValueError(f"hit histogram kernel takes k up to {MAX_K} and at least the "
+                         f"top-k's {width} columns, got {k}")
+    hist = torch.empty(k + 1, dtype=torch.int32, device=topk_idx.device)
+    topk_idx, true_items, valid = topk_idx.contiguous(), true_items.contiguous(), valid.contiguous()
+    args = (topk_idx.data_ptr(), true_items.data_ptr(), valid.data_ptr(), b, width, k,
+            hist.data_ptr())
+    _launch(1, topk_idx.device, args, "hit histogram")
+    hit_histogram.launches += 1
+    count("eval.hist_rows", b)
+    return hist
+
+
+def hit_histogram(topk_idx: torch.Tensor, true_items: torch.Tensor, valid: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """The held-out items' positions in a top-k index batch ``topk_idx``
+    [B, w] int64 (w <= k), as [k + 1] int32 counts: ``hist[p]``, p < k, the
+    ``valid`` rows whose ``true_items`` entry first equals column p (a held-out
+    item that was masked counts where it stands), ``hist[k]`` the valid
+    rows.  Recall@k is ``sum(hist[:k]) / hist[k]``, NDCG@k
+    ``sum(hist[p] / log2(p + 2)) / hist[k]``.  On a CUDA tensor one launch of
+    the kernel (it launches or raises); on a CPU tensor the plain version,
+    ``hit_histogram_plain``."""
+    if topk_idx.device.type == "cuda":
+        return _launch_hit_histogram(topk_idx, true_items, valid, k)
+    if topk_idx.device.type == "cpu":
+        return hit_histogram_plain(topk_idx, true_items, valid, k)
+    raise ValueError(f"hit_histogram: unsupported device {topk_idx.device}")
+
+
+# kernel launches since the last reset (tests and the chip smoke test read it)
+hit_histogram.launches = 0
 
 
 def merge_topk_candidates(all_vals: torch.Tensor, all_idx: torch.Tensor, k: int):
@@ -290,8 +367,8 @@ def merge_topk_candidates(all_vals: torch.Tensor, all_idx: torch.Tensor, k: int)
 
 def topk_eval_batch(user_emb, item_emb, users, true_items, filter_idx, valid, k: int):
     """One evaluation batch: masked top-k of the batch users' scores in
-    ``lax.top_k``'s tie order, then its (recall_sum, ndcg_sum, count)."""
+    ``lax.top_k``'s tie order, then its ``hit_histogram`` ([k + 1] int32)."""
     u = user_emb.index_select(0, users)
     _, topk_idx = masked_topk_scores(u, item_emb, filter_idx, k, stable=True)
     with span("eval.metrics"):
-        return topk_hit_metrics(topk_idx, true_items, valid)
+        return hit_histogram(topk_idx, true_items, valid, k)

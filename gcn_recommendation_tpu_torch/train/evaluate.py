@@ -4,14 +4,18 @@ PyTorch counterpart of ``gcn_recommendation_tpu/train/evaluate.py``
 (reference evaluate(), main.py:404-439): one held-out item per user (the
 last occurrence wins), one propagation per evaluation, and per user
 batch dense scores, seen-item masking, top-k (in ``lax.top_k``'s tie
-order) and hit/NDCG.  The metric is a mean over users, so the filter-
-width tiers only group users into batches of similar padding; sums stay
-on the device and one value per metric comes back to the host (the
-``eval.metrics`` span, as each batch's hit/NDCG in ``ops/topk.py``).
+order) and the held-out items' positions.  The metric is a mean over
+users, so the filter-width tiers only group users into batches of
+similar padding.  Each batch gives an exact histogram of positions
+(``ops/topk.py::hit_histogram``); a pass sums them on the device and
+brings the k + 1 counts to the host once (the ``eval.metrics`` span, as
+each batch's histogram in ``ops/topk.py``), where Recall@k and NDCG@k
+are formed in float64.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -99,17 +103,20 @@ def build_eval_batches(
 
 
 def evaluate_batches(fu, fi, batches, k: int) -> Tuple[float, float]:
-    """Recall@k / NDCG@k over prebuilt batches."""
+    """Recall@k / NDCG@k over prebuilt batches, from the batches' summed
+    ``hit_histogram``: ``hist[p]`` hits at position p < k over ``hist[k]``
+    users."""
     if not batches:
         return 0.0, 0.0
-    sums = torch.zeros(3, dtype=torch.float32, device=fu.device)
-    for users, true_items, filt, valid in batches:
-        sums += torch.stack(topk_eval_batch(fu, fi, users, true_items, filt, valid, k))
+    hists = [topk_eval_batch(fu, fi, users, true_items, filt, valid, k)
+             for users, true_items, filt, valid in batches]
     with span("eval.metrics"):
-        recall_sum, ndcg_sum, count = sums.tolist()
-    if count == 0:
+        hist = torch.stack(hists).sum(dim=0).tolist()
+    n = hist[k]
+    if n == 0:
         return 0.0, 0.0
-    return recall_sum / count, ndcg_sum / count
+    return (sum(hist[:k]) / n,
+            sum(h / math.log2(p + 2) for p, h in enumerate(hist[:k])) / n)
 
 
 def evaluate_embeddings(

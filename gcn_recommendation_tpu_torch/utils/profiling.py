@@ -25,7 +25,7 @@
   trace under ``$GCN_TPU_TRACE_DIR/<name>/``, in which each span is also a
   ``record_function`` range.  Nothing at all when the variable is unset.
 
-The port's spans and its counter, by module:
+The port's spans and its counters, by module:
 
     train.step, train.forward, train.loss,   train/trainer.py
     train.backward, train.adam
@@ -36,7 +36,9 @@ The port's spans and its counter, by module:
     topk.mask, topk.select, eval.metrics     ops/topk.py (topk.mask: the plain
                                              version only; on a card the
                                              kernel masks inside topk.select)
-    topk.kernel_rows (counter)               ops/topk.py
+    topk.kernel_rows, eval.hist_rows         ops/topk.py (the rows the top-k
+    (counters)                               kernel ranks, and that the hit
+                                             histogram kernel reduces)
 """
 
 from __future__ import annotations

@@ -670,3 +670,118 @@ def test_validate_launches_the_topk_kernel_once_per_eval_batch_on_card(card, bun
     before = topk.stable_masked_topk.launches
     r.recommend(np.unique(bundle.train.user_idx)[:64], k=20)
     assert topk.stable_masked_topk.launches == before
+
+
+# ------------------------------------------------ the hit histogram kernel
+
+
+def _hist_inputs(card, b, k, kind, seed):
+    """(topk_idx, true_items, valid) of one evaluation batch on the card:
+    the top-k kernel's indices of scores drawn so that ``kind`` occurs
+    (``tests/test_torch_evaluate.py::_hist_case`` names the kinds), the
+    held-out items hitting at a random column or missing."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n, f = 4 * k + 64, 8
+    if kind == "k_above_n":
+        n = max(1, k // 2)
+    if kind == "masked_ranked":  # n - f < k unmasked items: masked ones rank too
+        n = k + 4
+        f = min(8, n)
+    if kind == "ties":
+        scores = torch.randint(-3, 4, (b, n), generator=gen, device=card).float() * 0.5
+    else:
+        scores = torch.randn((b, n), generator=gen, device=card)
+    filt = torch.rand((b, n), generator=gen, device=card).argsort(dim=1)[:, :f].contiguous()
+    _, idx = topk.masked_topk(scores, filt, k, stable=True)
+    if kind == "repeated_index":
+        idx = torch.randint(0, 4, (b, k), generator=gen, device=card)
+    if kind == "miss":  # a masked item, below the n - f >= k unmasked ones
+        true = filt[:, 0].clone()
+    elif kind == "masked_ranked":  # the last column: a masked item when k > n - f
+        true = idx[:, -1].clone()
+    else:
+        pos = torch.randint(0, idx.shape[1], (b, 1), generator=gen, device=card)
+        true = torch.where(torch.rand(b, generator=gen, device=card) < 0.3,
+                           torch.randint(0, n, (b,), generator=gen, device=card),
+                           idx.gather(1, pos)[:, 0])
+    valid = torch.ones(b, dtype=torch.bool, device=card)
+    if kind == "pad_rows":
+        valid = torch.rand(b, generator=gen, device=card) < 0.67
+    if kind == "no_valid_row":
+        valid[:] = False
+    return idx, true, valid
+
+
+@pytest.mark.parametrize("kind", ["ties", "pad_rows", "masked_ranked", "miss", "k_above_n",
+                                  "no_valid_row", "repeated_index"])
+@pytest.mark.parametrize("b,k", [(1, 1), (1, 1024), (7, 20), (33, 3), (1024, 20), (1000, 100),
+                                 (4096, 20), (4096, 1024)])
+def test_hit_histogram_kernel_equals_plain_on_card(card, b, k, kind):
+    idx, true, valid = _hist_inputs(card, b, k, kind, seed=b + k)
+    before = topk.hit_histogram.launches
+    hist = topk.hit_histogram(idx, true, valid, k)
+    assert topk.hit_histogram.launches == before + 1
+    plain = topk.hit_histogram_plain(idx, true, valid, k)
+    torch.cuda.synchronize()
+    assert hist.dtype == torch.int32 and hist.shape == (k + 1,)
+    assert torch.equal(hist, plain)
+    if kind == "miss":
+        assert int(hist[:k].sum()) == 0 and int(hist[k]) == b
+    if kind == "masked_ranked":
+        assert int(hist[:k].sum()) == b
+    if kind == "no_valid_row":
+        assert int(hist.abs().sum()) == 0
+
+
+def test_hit_histogram_kernel_refuses_what_it_cannot_take_on_card(card):
+    idx = torch.zeros((4, 20), dtype=torch.int64, device=card)
+    true = torch.zeros(4, dtype=torch.int64, device=card)
+    valid = torch.ones(4, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="2-D int64"):
+        topk.hit_histogram(idx.int(), true, valid, 20)
+    with pytest.raises(ValueError, match="true_items"):
+        topk.hit_histogram(idx, true[:3], valid, 20)
+    with pytest.raises(ValueError, match="valid"):
+        topk.hit_histogram(idx, true, valid.int(), 20)
+    with pytest.raises(ValueError, match="k up to 1024"):
+        topk.hit_histogram(idx, true, valid, 19)
+    with pytest.raises(ValueError, match="k up to 1024"):
+        topk.hit_histogram(torch.zeros((4, 2), dtype=torch.int64, device=card), true, valid,
+                           1025)
+    # no row: one launch all the same, every count written as 0
+    hist = topk.hit_histogram(idx[:0], true[:0], valid[:0], 20)
+    assert hist.tolist() == [0] * 21
+
+
+def test_validate_launches_the_hit_histogram_once_per_eval_batch_on_card(card, bundle):
+    """``Trainer.validate`` reduces each eval batch's top-k through one
+    launch of the histogram kernel (the ``eval.hist_rows`` counter counts
+    their rows), and its metrics are those of the plain histogram of the
+    same top-k, formed alike."""
+    from gcn_recommendation_tpu_torch.utils import profiling
+
+    cfg = Config(embedding_dim=32, n_layers=3, eval_user_batch=256)
+    m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                              device=card)
+    m.init(torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, m, bundle)
+    before = topk.hit_histogram.launches
+    with profiling.collect() as rec:
+        got = tr.validate()
+    batches = tr._eval_batches
+    assert len(batches) > 1
+    assert topk.hit_histogram.launches - before == len(batches)
+    assert rec.counters["eval.hist_rows"] == sum(int(bt[0].shape[0]) for bt in batches)
+    assert rec.counters["eval.hist_rows"] == rec.counters["topk.kernel_rows"]
+    with torch.no_grad():
+        fu, fi = tr._forward_eval()[:2]
+        hist = torch.zeros(cfg.top_k + 1, dtype=torch.int64, device=card)
+        for users, true_items, filt, valid in batches:
+            _, idx = topk.masked_topk_scores(fu.index_select(0, users), fi, filt, cfg.top_k,
+                                             stable=True)
+            hist += topk.hit_histogram_plain(idx, true_items, valid, cfg.top_k)
+    hist = hist.tolist()
+    n, k = hist[-1], cfg.top_k
+    want = (sum(hist[:k]) / n, sum(h / np.log2(p + 2) for p, h in enumerate(hist[:k])) / n)
+    assert 0 < want[0] < 1
+    np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -5,7 +5,9 @@ NDCG@k agree within 1e-6 (f32 scores; the metric sums are exact counts
 and reciprocals of logs).  Tied scores are built on purpose: duplicated
 item rows score exactly alike, and the held-out item sits in a tie
 group that straddles the top-k boundary, so only ``lax.top_k``'s
-lower-index-first order gives the JAX package's hits.
+lower-index-first order gives the JAX package's hits.  A batch's hit
+histogram (``hit_histogram_plain``) is held against ``topk_hit_metrics``,
+its float reference, and a row-by-row count.
 """
 
 import jax.numpy as jnp
@@ -19,10 +21,17 @@ from gcn_recommendation_tpu.train.evaluate import (
     evaluate_embeddings as jax_evaluate,
 )
 from gcn_recommendation_tpu_torch.data.loader import Interactions
-from gcn_recommendation_tpu_torch.ops.topk import masked_topk, topk_hit_metrics
+from gcn_recommendation_tpu_torch.ops.topk import (
+    hit_histogram,
+    hit_histogram_plain,
+    masked_topk,
+    masked_topk_scores,
+    topk_hit_metrics,
+)
 from gcn_recommendation_tpu_torch.train.evaluate import (
     build_eval_batches,
     dedup_eval_users,
+    evaluate_batches,
     evaluate_embeddings,
 )
 from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
@@ -96,3 +105,95 @@ def test_eval_batches_pad_and_tier():
     assert len(widths) >= 2  # the heavy user sits in a wider tier
     for u, t, f, v in batches:
         assert u.shape == t.shape == v.shape == (16,) and f.dtype == torch.int64
+
+
+def _hist_case(kind, seed=0):
+    """(topk_idx, true_items, valid, k) of one evaluation batch, drawn so
+    that ``kind`` occurs: ``ties`` (seven score levels, held-out items in
+    tie groups), ``pad_rows`` (a third of the rows not valid, hits among
+    them), ``masked_ranked`` (rows with fewer than k unmasked items, the
+    held-out item masked yet in the top k), ``miss`` (no held-out item in
+    its top k), ``k_above_n`` (N < k: N columns), ``no_valid_row``,
+    ``repeated_index`` (an index row with repeats: the first one counts)."""
+    rng = np.random.default_rng(seed)
+    b, n, k, f = 64, 50, 10, 8
+    if kind == "k_above_n":
+        n = 8
+    if kind == "masked_ranked":
+        n, f = 30, 25
+    scores = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    if kind == "ties":
+        scores = torch.from_numpy(rng.integers(-3, 4, (b, n)).astype(np.float32) * 0.5)
+    filt = torch.from_numpy(np.stack([rng.choice(n, f, replace=False) for _ in range(b)]))
+    _, idx = masked_topk(scores, filt, k, stable=True)
+    if kind == "repeated_index":
+        idx = torch.from_numpy(rng.integers(0, 4, (b, k)))
+    width = idx.shape[1]
+    if kind == "miss":
+        # an item of the row's filter that did not rank: masked below k others
+        true = torch.stack([next(t for t in filt[r] if t not in idx[r]) for r in range(b)])
+    elif kind == "masked_ranked":
+        true = torch.stack([next(t for t in idx[r].flip(0) if t in filt[r]) for r in range(b)])
+    else:
+        pos = torch.from_numpy(rng.integers(0, width, b))
+        true = idx.gather(1, pos[:, None])[:, 0]
+        miss = torch.from_numpy(rng.random(b) < 0.3)
+        true = torch.where(miss, torch.from_numpy(rng.integers(0, n, b)), true)
+    valid = torch.ones(b, dtype=torch.bool)
+    if kind == "pad_rows":
+        valid = torch.from_numpy(rng.random(b) < 0.67)
+    if kind == "no_valid_row":
+        valid = torch.zeros(b, dtype=torch.bool)
+    return idx, true.to(torch.int64), valid, k
+
+
+HIST_CASES = ["ties", "pad_rows", "masked_ranked", "miss", "k_above_n", "no_valid_row",
+              "repeated_index"]
+
+
+@pytest.mark.parametrize("kind", HIST_CASES)
+def test_hit_histogram_matches_topk_hit_metrics(kind):
+    idx, true, valid, k = _hist_case(kind)
+    hist = hit_histogram_plain(idx, true, valid, k)
+    assert hist.dtype == torch.int32 and hist.shape == (k + 1,)
+    assert torch.equal(hit_histogram(idx, true, valid, k), hist)
+    want = [0] * (k + 1)
+    for r in range(idx.shape[0]):
+        if valid[r]:
+            want[k] += 1
+            hits = (idx[r] == true[r]).nonzero()
+            if len(hits):
+                want[int(hits[0])] += 1
+    assert hist.tolist() == want
+    recall_sum, ndcg_sum, count = (float(x) for x in topk_hit_metrics(idx, true, valid))
+    assert (recall_sum, count) == (sum(want[:k]), want[k])
+    ndcg = sum(h / np.log2(p + 2) for p, h in enumerate(want[:k]))
+    np.testing.assert_allclose(ndcg_sum, ndcg, rtol=1e-6)
+    if kind == "masked_ranked":
+        assert sum(want[:k]) == want[k]  # every row's masked held-out item ranked
+    if kind == "miss":
+        assert sum(want[:k]) == 0 and want[k] == idx.shape[0]
+    if kind == "k_above_n":
+        assert idx.shape[1] < k and sum(want[:k]) > 0
+    if kind in ("ties", "pad_rows"):
+        assert 0 < sum(want[:k]) < want[k]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("batch_size", [16, 1024])
+def test_evaluate_batches_equals_float32_sums(ties, batch_size):
+    """The metrics from the summed histogram agree with the float32 sums of
+    ``topk_hit_metrics`` over the same batches (pad rows included)."""
+    fu, fi, ev, filt = _setup(2, ties)
+    fu, fi = torch.from_numpy(fu), torch.from_numpy(fi)
+    batches = build_eval_batches(Interactions(*ev), Interactions(*filt), NU, NI, batch_size,
+                                 device="cpu")
+    assert any(not bool(b[3].all()) for b in batches)
+    sums = torch.zeros(3, dtype=torch.float32)
+    for users, true_items, f, valid in batches:
+        _, idx = masked_topk_scores(fu.index_select(0, users), fi, f, K, stable=True)
+        sums += torch.stack(topk_hit_metrics(idx, true_items, valid))
+    recall, ndcg, n = sums.tolist()
+    got = evaluate_batches(fu, fi, batches, K)
+    np.testing.assert_allclose(got, (recall / n, ndcg / n), rtol=1e-6, atol=1e-6)
+    assert evaluate_batches(fu, fi, [], K) == (0.0, 0.0)
