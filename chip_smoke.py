@@ -32,7 +32,7 @@ fails:
    ``recommend``, ``recommend_pipelined`` and ``recommend_many``.
    Checked: finite scores, no seen item returned, pipelined and
    micro-batched equal per-request results, the per-layer ELL propagation
-   equal to the ``propagate_coo`` oracle within 1e-5, int8 top-20 overlapping f32
+   equal to the COO oracle (``to_device_coo_graph``) within 1e-5, int8 top-20 overlapping f32
    top-20 by >= 0.9, and the kernel launched during the int8 load;
 5. kernel check: ``tile_matvec`` in both layouts, compressed
    (``csrc/tile_gather_spmm.cu``) and dense (``csrc/tile_spmm.cu``), against
@@ -40,7 +40,7 @@ fails:
    tiles per step, d = 64) with f32 tiles (max abs diff <= 1e-5) and bf16
    tiles (<= 1e-5 * max(1, max|plain|)), and on a ragged partition (N not
    a multiple of 128, d = 48); ``layout="auto"`` must pick compressed
-   there; the ``propagate_ell_tiles`` gradient of ``sum(out**2)`` on the
+   there; the ``TiledDeviceGraph`` gradient of ``sum(out**2)`` on the
    auto layout against the plain ELL path's within 1e-4; times of both
    layouts beside their bounds and beside ``torch.sparse.mm`` of the tile
    edges as a CSR matrix.  A kernel's ``ms`` is its time on the card, from
@@ -49,13 +49,13 @@ fails:
    short;
 6. the training path: a ``Trainer`` with ``tile_spmm=True`` (auto layout:
    the compressed kernel) and an ELL twin (the default ``Trainer``: the
-   merge-skip ``propagate_sum_ell``) from the same params (dim 64, 3
+   merge-skip ``DeviceGraph.layer_sum``) from the same params (dim 64, 3
    layers, batch 2048) take the same 20 steps on the same batches and
    negatives.  Checked: finite losses, the two paths' per-step losses
    within rtol 2e-3, the loss falling, ``tile_matvec`` launched exactly 6
    times a step plus 3 for the validation forward, Recall@20 / NDCG@20 in
    [0, 1], and the ``best`` checkpoint serving a 64-user request through
-   ``Retriever``.  A per-layer twin (``graph_fuse_layers=False``) takes
+   ``Retriever``.  A per-layer twin (``PerLayerTrainer``) takes
    the same 20 steps from the same params: per-step losses within rtol
    2e-5 of the fused run, final params within 1e-6; ms per step and peak
    memory of each.  Then, measurement only and time-boxed: ms per step of
@@ -130,8 +130,8 @@ fails:
    64 users on each retriever (device time by kernel, the host's busiest
    ops, ``profile_mesh_*:`` lines);
 12. the layouts, on the books bundle at d = 64, 3 layers (``layouts:``,
-   ``knee_scan:``, ``bf16:``, ``native:`` lines): (a) ``propagate_sum_ell``
-   against the sum of three ``propagate_ell`` calls (<= 1e-5), the
+   ``knee_scan:``, ``bf16:``, ``native:`` lines): (a) ``layer_sum``
+   against the sum of three per-layer ``propagate`` calls (<= 1e-5), the
    gradients of ``sum(out**2)`` (<= 1e-4), bf16 storage against f32
    (rtol and atol 0.05, f32 out), fwd+bwd ms of each, the views' bytes;
    (b) the source-chunked layout at C = 2, 3, 4 against plain ELL
@@ -145,7 +145,7 @@ fails:
    finite falling losses within rtol 2e-2 of the f32 run, ms per step and
    peak memory beside f32; (e) ``test`` mode through the CLI's parser and
    mode function on the fused trainer's checkpoint (one
-   ``propagate_sum_ell``), its Recall@20 / NDCG@20 equal to
+   ``layer_sum``), its Recall@20 / NDCG@20 equal to
    ``Trainer.validate`` over the test split within rtol 1e-6; that
    checkpoint serving 64 users from an int8 catalog (K2 once in each
    mode, counted from 0); the native ETL library loaded, the bundle's
@@ -313,7 +313,7 @@ from gcn_recommendation_tpu_torch.kernels import _build
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import block_spmm, quant, spmm, topk
 from gcn_recommendation_tpu_torch.ops.spmm import (
-    propagate_ell,
+    propagate,
     to_device_graph,
     to_device_graph_auto,
 )
@@ -836,14 +836,15 @@ def phase_path(dev, bundle, bundle_s):
 
     # propagation against the COO oracle, and its time
     with torch.no_grad():
-        graph = to_device_graph(g, include_coo=True, device=dev, fuse_layers=False)
-        ell = torch.cat([t for t in model(graph, path="ell")[:3]])
-        coo = torch.cat([t for t in model(graph, path="coo")[:3]])
+        graph = to_device_graph(g, device=dev, fuse_layers=False)
+        coo_graph = spmm.to_device_coo_graph(g, device=dev)
+        ell = torch.cat([t for t in model(graph)[:3]])
+        coo = torch.cat([t for t in model(coo_graph)[:3]])
         diff = (ell - coo).abs().max().item()
         check(diff <= PROPAGATION_ATOL,
               f"ELL propagation matches propagate_coo (max abs diff {diff:.3g})")
         propagate_ms = cuda_ms(lambda: model(graph), reps=5, warmup=2)
-        coo_ms = cuda_ms(lambda: model(graph, path="coo"), reps=5, warmup=2)
+        coo_ms = cuda_ms(lambda: model(coo_graph), reps=5, warmup=2)
 
     latency = {}
     for name, r in (("f32", rf), ("int8", rq)):
@@ -1014,13 +1015,11 @@ def phase_tile_kernel_check(dev, bundle):
     full = to_device_graph(g, device=dev, fuse_layers=False)
     x = emb.clone().requires_grad_(True)
     (g_tile,) = torch.autograd.grad(
-        (block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
-    (g_ell,) = torch.autograd.grad((propagate_ell(
-        x, full.bucket_nbr_idx, full.bucket_nbr_w, full.gather_idx, full.dense_mat) ** 2).sum(),
-        x)
+        (propagate(x, block_spmm.TiledDeviceGraph(base=res, tiles=tiles)) ** 2).sum(), x)
+    (g_ell,) = torch.autograd.grad((propagate(x, full) ** 2).sum(), x)
     gerr = (g_tile - g_ell).abs().max().item()
     check(gerr <= TILE_GRAD_ATOL,
-          f"propagate_ell_tiles gradient on the {tiles.layout} layout matches the ELL gradient "
+          f"the tile partition's gradient on the {tiles.layout} layout matches the ELL gradient "
           f"(max abs diff {gerr:.3g})")
 
     csr = _tile_csr(part, n, dev)
@@ -1195,7 +1194,10 @@ class PerLayerTrainer(Trainer):
     merge-skip views: phase 6's twin of the fused default and phase 11's
     reference."""
 
-    graph_fuse_layers = False
+    def _device_graph(self):
+        return to_device_graph(self.model.padded_graph(self.bundle.graph),
+                               compute_dtype=getattr(torch, self.config.compute_dtype),
+                               device=self.device, fuse_layers=False)
 
 
 def _graph_gib(graph) -> float:
@@ -1258,7 +1260,7 @@ def phase_train(dev, bundle):
     # step, and the memory each takes from its build on
     pl_losses, pl_ms, pl_peak, per_layer = _steps_alone(
         dev, bundle, tmp, PerLayerTrainer, users, pos, neg)
-    check(not per_layer.graph.fused, "graph_fuse_layers=False builds no merge-skip views")
+    check(not per_layer.graph.fused, "the per-layer twin builds no merge-skip views")
     pl_params = {k: v.clone() for k, v in per_layer.model.params().items()}
     pl_graph_gib = _graph_gib(per_layer.graph)
     print("profile_ell_per_layer: " + json.dumps(_profile_steps(per_layer, users, pos, neg)),
@@ -2275,17 +2277,11 @@ def phase_mesh(dev, bundle, ell_losses):
         distributed.shutdown()
 
 
-def _fused_args(dg):
-    return (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.bucket_nbr_idx_perm, dg.gather_idx,
-            dg.dense_mat, dg.dense_mat_perm)
-
-
 def _sum_of_layers(x, plain, layers: int = 3):
-    """``sum_{k=1..K} A^k x`` through K per-layer ``propagate_ell`` calls."""
+    """``sum_{k=1..K} A^k x`` through K per-layer ``propagate`` calls."""
     out, y = None, x
     for _ in range(layers):
-        y = propagate_ell(y, plain.bucket_nbr_idx, plain.bucket_nbr_w, plain.gather_idx,
-                          plain.dense_mat)
+        y = propagate(y, plain)
         out = y if out is None else out + y
     return out
 
@@ -2299,33 +2295,33 @@ def _value_and_grad(fn, emb):
 
 
 def _layouts_fused(dev, g, emb, meas):
-    """(a) ``propagate_sum_ell`` against three per-layer propagations."""
+    """(a) ``DeviceGraph.layer_sum`` against three per-layer propagations."""
     plain = to_device_graph(g, device=dev, fuse_layers=False)
     fused = to_device_graph(g, device=dev)
     check(fused.fused and not plain.fused, "to_device_graph builds the merge-skip views by "
           "default and none with fuse_layers=False")
     y_p, g_p = _value_and_grad(lambda x: _sum_of_layers(x, plain), emb)
-    y_f, g_f = _value_and_grad(lambda x: spmm.propagate_sum_ell(3, x, *_fused_args(fused)), emb)
+    y_f, g_f = _value_and_grad(lambda x: fused.layer_sum(x, 3), emb)
     fwd, grad = (y_f - y_p).abs().max().item(), (g_f - g_p).abs().max().item()
-    check(fwd <= LAYOUT_FWD_ATOL, f"propagate_sum_ell (3 layers) equals the sum of three "
-          f"propagate_ell calls (max abs diff {fwd:.3g})")
-    check(grad <= LAYOUT_GRAD_ATOL, f"propagate_sum_ell's gradient of sum(out**2) equals the "
+    check(fwd <= LAYOUT_FWD_ATOL, f"layer_sum (3 layers) equals the sum of three "
+          f"per-layer propagations (max abs diff {fwd:.3g})")
+    check(grad <= LAYOUT_GRAD_ATOL, f"layer_sum's gradient of sum(out**2) equals the "
           f"per-layer one (max abs diff {grad:.3g})")
     fused16 = to_device_graph(g, compute_dtype=torch.bfloat16, device=dev)
-    y16 = spmm.propagate_sum_ell(3, emb.to(torch.bfloat16), *_fused_args(fused16))
+    y16 = fused16.layer_sum(emb.to(torch.bfloat16), 3)
     d16 = (y16 - y_f).abs().max().item()
     check(y16.dtype == torch.float32 and torch.allclose(
         y16, y_f, rtol=LAYOUT_BF16_TOL, atol=LAYOUT_BF16_TOL),
-        f"propagate_sum_ell with bf16 storage returns f32 within {LAYOUT_BF16_TOL} of the f32 "
+        f"layer_sum with bf16 storage returns f32 within {LAYOUT_BF16_TOL} of the f32 "
         f"result (max abs diff {d16:.3g})")
     x = emb.clone().requires_grad_(True)
     meas["fused_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        (spmm.propagate_sum_ell(3, x, *_fused_args(fused)) ** 2).sum(), x), reps=5)
+        (fused.layer_sum(x, 3) ** 2).sum(), x), reps=5)
     meas["per_layer_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         (_sum_of_layers(x, plain) ** 2).sum(), x), reps=5)
     x16 = emb.to(torch.bfloat16).requires_grad_(True)
     meas["fused_bf16_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        (spmm.propagate_sum_ell(3, x16, *_fused_args(fused16)) ** 2).sum(), x16), reps=5)
+        (fused16.layer_sum(x16, 3) ** 2).sum(), x16), reps=5)
     perm = list(fused.bucket_nbr_idx_perm) + [fused.dense_mat_perm]
     meas["perm_views_gib"] = sum(t.numel() * t.element_size() for t in perm) / 2**30
     meas["graph_gib_fused"] = _graph_gib(fused)
@@ -2337,9 +2333,7 @@ def _layouts_fused(dev, g, emb, meas):
 
 def _layouts_chunked(dev, g, emb, plain, meas):
     """(b) the chunked layout at each of ``LAYOUT_CHUNKS`` against plain ELL."""
-    n = g.num_nodes
-    one = lambda x: propagate_ell(  # noqa: E731
-        x, plain.bucket_nbr_idx, plain.bucket_nbr_w, plain.gather_idx, plain.dense_mat)
+    one = lambda x: propagate(x, plain)  # noqa: E731
     y_p, g_p = _value_and_grad(one, emb)
     meas["plain_ms"] = cuda_ms(lambda: one(emb), reps=5)
     for c in LAYOUT_CHUNKS:
@@ -2350,23 +2344,23 @@ def _layouts_chunked(dev, g, emb, plain, meas):
         cg = spmm.to_device_chunked_graph(g, c, device=dev)
         torch.cuda.synchronize()
         meas[f"c{c}_to_device_s"] = time.perf_counter() - t0
-        check(isinstance(cg, spmm.ChunkedDeviceGraph) and len(cg.chunk_gather_idx) == c,
+        check(isinstance(cg, spmm.ChunkedDeviceGraph) and cg.num_chunks == c,
               f"to_device_chunked_graph builds {c} source chunks")
-        y_c, g_c = _value_and_grad(lambda x: spmm.propagate(x, cg, n), emb)
+        y_c, g_c = _value_and_grad(lambda x: propagate(x, cg), emb)
         fwd, grad = (y_c - y_p).abs().max().item(), (g_c - g_p).abs().max().item()
         check(fwd <= LAYOUT_FWD_ATOL and grad <= LAYOUT_GRAD_ATOL,
               f"chunked at C={c}: forward and gradient equal plain ELL's (max abs diff "
               f"{fwd:.3g} / {grad:.3g})")
         cg16 = exp_gather_knee.cast_layout(cg, torch.bfloat16)
-        y16 = spmm.propagate(emb.to(torch.bfloat16), cg16, n)
+        y16 = propagate(emb.to(torch.bfloat16), cg16)
         d16 = (y16.float() - y_p).abs().max().item()
         scale = y_p.abs().max().item()
         check(y16.dtype == torch.bfloat16 and d16 <= CHUNK_BF16_RTOL * scale,
               f"chunked at C={c} with bf16 storage (f32 accumulation) within "
               f"{CHUNK_BF16_RTOL} x {scale:.3g} of f32 (max abs diff {d16:.3g})")
-        meas[f"c{c}_ms"] = cuda_ms(lambda: spmm.propagate(emb, cg, n), reps=5)
+        meas[f"c{c}_ms"] = cuda_ms(lambda: propagate(emb, cg), reps=5)
         emb16 = emb.to(torch.bfloat16)
-        meas[f"c{c}_bf16_ms"] = cuda_ms(lambda: spmm.propagate(emb16, cg16, n), reps=5)
+        meas[f"c{c}_bf16_ms"] = cuda_ms(lambda: propagate(emb16, cg16), reps=5)
         meas.update({f"c{c}_max_abs_diff": fwd, f"c{c}_grad_max_abs_diff": grad,
                      f"c{c}_bf16_max_abs_diff": d16})
         del cg, cg16
@@ -2421,20 +2415,19 @@ def _layouts_test_mode_and_serving(dev, bundle, ref, meas):
     against ``Trainer.validate`` on the test split; serving that checkpoint
     from an int8 catalog.  Returns K2's launches on the serving path."""
     from gcn_recommendation_tpu_torch.data.loader import Interactions
-    from gcn_recommendation_tpu_torch.models import lightgcn
 
     b = bundle
     args = cli.build_parser().parse_args(["test", "--model_path", ref["fused_dir"]])
     config = cli._make_config(args)
     model = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, config, device=dev)
     calls = []
-    real = lightgcn.propagate_sum_ell
-    lightgcn.propagate_sum_ell = lambda *a: calls.append(1) or real(*a)
+    real = spmm.DeviceGraph.layer_sum
+    spmm.DeviceGraph.layer_sum = lambda self, *a: calls.append(1) or real(self, *a)
     try:
         recall, ndcg = cli.run_test_loaded(config, args, b, model, dev)
     finally:
-        lightgcn.propagate_sum_ell = real
-    check(len(calls) == 1, f"test mode propagates through propagate_sum_ell ({len(calls)} call)")
+        spmm.DeviceGraph.layer_sum = real
+    check(len(calls) == 1, f"test mode propagates through layer_sum ({len(calls)} call)")
     # Trainer.validate over the test split, train + val filtered: the same
     # evaluation as test mode, on the default trainer's fused graph
     filt = Interactions(np.concatenate([b.train.user_idx, b.val.user_idx]),

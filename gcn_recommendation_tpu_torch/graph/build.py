@@ -464,7 +464,7 @@ def build_chunked_ell(graph: Graph, num_chunks: int, num_dest_slices: Optional[i
       slice outputs concatenate in node order.
 
     Composing the merge into the next layer's indices (the merge-skip of
-    ``propagate_sum_ell``) does not carry over: the merged output is a sum
+    ``ops/spmm.py::DeviceGraph.layer_sum``) does not carry over: the merged output is a sum
     of per-chunk parts tables, so every downstream edge gather would read
     all C of them.
 

@@ -3,7 +3,8 @@
 Reference semantics (models/lightgcn.py of the reference): three
 Xavier-uniform tables (users / items / brands); forward concatenates them,
 runs K propagations, averages the K+1 layer outputs and splits the block
-back.  The layer mean is a running f32 sum, as in the JAX package.
+back.  The layer mean is ``ops/spmm.py::layer_mean`` (in f32, as in the
+JAX package); which propagation it runs is the graph kind's business.
 
 The set of parameter keys belongs to the model (``param_keys``, and of
 those ``trainable_keys``): ``params``, ``load_params``, the optimizer,
@@ -27,7 +28,7 @@ from torch import nn
 
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.build import Graph, pad_graph_nodes
-from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, propagate, propagate_sum_ell
+from gcn_recommendation_tpu_torch.ops.spmm import layer_mean
 
 
 def xavier_uniform(
@@ -244,36 +245,15 @@ class LightGCN(nn.Module):
         Fusion variant overrides this to return the fused item block."""
         return self.user_embedding, self.item_embedding, self.brand_embedding
 
-    def forward(self, graph, path: str = "ell"):
+    def forward(self, graph):
         """Returns (final_user, final_item, final_brand, user0, item0), all
-        of logical size.  ``graph`` is a DeviceGraph, a ChunkedDeviceGraph
-        or a TiledDeviceGraph (over the padded node space when the tables
-        are row-padded); gradients flow to the tables through each (every
-        propagation's backward is the same product on the cotangent).
-
-        A DeviceGraph that carries the permuted views (``fused``) takes
-        the merge-skip path at 2 layers or more on ``path='ell'``: one
-        ``propagate_sum_ell`` for all K layers, as in the JAX package."""
-        num_nodes = self.num_users_pad + self.num_items_pad + self.num_brands_pad
+        of logical size.  ``graph`` is any graph kind of ``ops/spmm.py``
+        (over the padded node space when the tables are row-padded);
+        gradients flow to the tables through its propagation.  The layer
+        mean is ``ops/spmm.py::layer_mean``: one merge-skip call on a graph
+        with the permuted views, as in the JAX package."""
         ego = torch.cat(self._initial_tables(), dim=0)
-        fused = path == "ell" and self.n_layers >= 2 and (
-            isinstance(graph, DeviceGraph) and graph.fused)
-        if fused:
-            s = propagate_sum_ell(
-                self.n_layers, ego.to(self.compute_dtype), graph.bucket_nbr_idx,
-                graph.bucket_nbr_w, graph.bucket_nbr_idx_perm, graph.gather_idx,
-                graph.dense_mat, graph.dense_mat_perm,
-            )
-            final = ((ego.float() + s) / (self.n_layers + 1)).to(ego.dtype)
-            return self._split_final(final)
-        # propagate in compute dtype, accumulate the layer mean in f32
-        acc = ego.float()
-        x = ego.to(self.compute_dtype)
-        for _ in range(self.n_layers):
-            x = propagate(x, graph, num_nodes, path=path)
-            acc = acc + x.float()
-        final = (acc / (self.n_layers + 1)).to(ego.dtype)
-        return self._split_final(final)
+        return self._split_final(layer_mean(ego, graph, self.n_layers, self.compute_dtype))
 
     def _split_final(self, final: torch.Tensor, gather_table=None):
         """Slice the propagated block back into logical-size (final_user,

@@ -6,11 +6,9 @@ from gcn_recommendation_tpu_torch.ops.spmm import (
     ChunkedDeviceGraph,
     DeviceGraph,
     propagate,
-    propagate_chunked,
     propagate_coo,
-    propagate_ell,
-    propagate_sum_ell,
     to_device_chunked_graph,
+    to_device_coo_graph,
     to_device_graph,
     to_device_graph_auto,
 )
@@ -24,11 +22,9 @@ __all__ = [
     "ChunkedDeviceGraph",
     "DeviceGraph",
     "propagate",
-    "propagate_chunked",
     "propagate_coo",
-    "propagate_ell",
-    "propagate_sum_ell",
     "to_device_chunked_graph",
+    "to_device_coo_graph",
     "to_device_graph",
     "to_device_graph_auto",
     "masked_topk",

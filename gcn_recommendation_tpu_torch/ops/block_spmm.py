@@ -20,11 +20,12 @@ PyTorch counterpart of ``gcn_recommendation_tpu/ops/block_spmm.py``.
 
   On a CPU tensor it runs the plain PyTorch version
   ``_tile_matvec_reference`` of the tiles' layout.
-* ``propagate_ell_tiles`` — the full partitioned product ``A_norm @ emb
-  = ELL(residual) + hub rows + tiles``.  The partition is not symmetric
-  but its sum is, so the backward pass applies the same forward to the
-  cotangent (as ``ops/spmm.py::propagate_ell``): the tile kernel runs
-  once per layer forward and once per layer backward.
+* ``TiledDeviceGraph`` — a graph kind of ``ops/spmm.py`` whose product
+  is the full partitioned ``A_norm @ emb = ELL(residual) + hub rows +
+  tiles``.  The partition is not symmetric but its sum is, so
+  ``ops/spmm.py::propagate`` applies the same product to the cotangent in
+  the backward pass: the tile kernel runs once per layer forward and once
+  per layer backward.
 * ``to_device_tiles`` ships a graph partition (``graph/tiles.py``);
   ``tiles_from_arrays`` builds tiles for ``tile_matvec`` from raw arrays
   at any number of tiles per step, with a row id per tile or per step
@@ -44,7 +45,7 @@ import torch
 
 from gcn_recommendation_tpu_torch.core.device import DeviceLike, resolve_device
 from gcn_recommendation_tpu_torch.graph.tiles import TILE, TilePartition
-from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, _ell_matvec
+from gcn_recommendation_tpu_torch.ops.spmm import DeviceGraph, SymmetricGraph
 from gcn_recommendation_tpu_torch.utils.profiling import span
 
 LAYOUTS = ("dense", "compressed")
@@ -416,44 +417,22 @@ def tile_matvec(emb: torch.Tensor, tiles: TileDeviceArrays) -> torch.Tensor:
 tile_matvec.launches = 0
 
 
-def _ell_tiles_matvec(emb: torch.Tensor, graph: DeviceGraph, tiles: TileDeviceArrays):
-    if tiles.tile_gather_idx is None:
-        raise ValueError("these tiles carry no node map: they are not a graph partition")
-    base = _ell_matvec(
-        emb, graph.bucket_nbr_idx, graph.bucket_nbr_w, graph.gather_idx, graph.dense_mat
-    )
-    tile_out = tile_matvec(emb, tiles)
-    # trailing zeros row for nodes whose row holds no tile
-    ext = torch.cat([tile_out, tile_out.new_zeros((1, emb.shape[1]))])
-    return base + ext.index_select(0, tiles.tile_gather_idx).to(emb.dtype)
-
-
-class _PropagateEllTiles(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, emb, graph, tiles):
-        ctx.graph, ctx.tiles = graph, tiles
-        with span("spmm.forward"):
-            return _ell_tiles_matvec(emb, graph, tiles)
-
-    @staticmethod
-    def backward(ctx, grad):
-        # the whole partition sums to the symmetric A_norm (graph/tiles.py),
-        # so d(emb) = A_norm @ grad through the same partitioned product
-        with span("spmm.backward"):
-            return _ell_tiles_matvec(grad, ctx.graph, ctx.tiles), None, None
-
-
-def propagate_ell_tiles(emb: torch.Tensor, graph: DeviceGraph, tiles: TileDeviceArrays):
-    """``A_norm @ emb`` over the tile partition (residual ELL + hub rows +
-    tiles), differentiable in ``emb``."""
-    return _PropagateEllTiles.apply(emb, graph, tiles)
-
-
 @dataclasses.dataclass
-class TiledDeviceGraph:
+class TiledDeviceGraph(SymmetricGraph):
     """Device graph for the tile partition: the residual ELL + hub
-    ``DeviceGraph`` plus the tile arrays; ``ops/spmm.py::propagate``
-    dispatches it to ``propagate_ell_tiles``."""
+    ``DeviceGraph`` plus the tile arrays."""
 
     base: DeviceGraph
     tiles: TileDeviceArrays
+
+    def product(self, emb: torch.Tensor) -> torch.Tensor:
+        """``A_norm @ emb`` over the partition: residual ELL + hub rows +
+        tiles.  The partition is not symmetric but its sum is
+        (``graph/tiles.py``), so the backward is this product too."""
+        if self.tiles.tile_gather_idx is None:
+            raise ValueError("these tiles carry no node map: they are not a graph partition")
+        base = self.base.product(emb)
+        tile_out = tile_matvec(emb, self.tiles)
+        # trailing zeros row for nodes whose row holds no tile
+        ext = torch.cat([tile_out, tile_out.new_zeros((1, emb.shape[1]))])
+        return base + ext.index_select(0, self.tiles.tile_gather_idx).to(emb.dtype)

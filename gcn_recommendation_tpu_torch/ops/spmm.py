@@ -1,31 +1,38 @@
-"""Sparse propagation ``A_norm @ emb`` over the degree-bucketed ELL graph.
+"""Sparse propagation ``A_norm @ emb``: the device graph kinds and their
+one symmetric backward.
 
-PyTorch counterpart of ``gcn_recommendation_tpu/ops/spmm.py``:
+PyTorch counterpart of ``gcn_recommendation_tpu/ops/spmm.py``.  Each graph
+kind owns its product, ``product(x)``, node order in and node order out;
+``propagate(x, graph)`` is the one entry point and ``layer_mean`` the
+LightGCN layer mean over any kind:
 
-* ``propagate_ell`` — per bucket a gather, multiply and reduce over the
-  padded neighbor axis, the hub rows as one dense matrix product, a
-  zeros row for degree-0 nodes, and one gather restoring node order.
-  These are ``index_select`` and ``torch.matmul``: the JAX package
-  leaves them to XLA, not to a Pallas kernel.  ``A_norm`` is symmetric,
-  so its backward pass is the same gather product applied to the
-  cotangent (a ``torch.autograd.Function``), never autograd's
-  ``index_add_`` scatter through the gathers.
-* ``propagate_sum_ell`` — ``sum_{k=1..K} A_norm^k @ ego`` with one
-  restore gather for all K layers (merge-skip), over the permuted views
-  that ``to_device_graph(fuse_layers=True)`` builds; what the default
-  ``Trainer`` and ``test`` mode run.  ``sum_k A^k`` is symmetric too, so
-  its backward is the same sum on the cotangent.
-* ``propagate_chunked`` — the source-chunked, destination-sliced layout
+* ``DeviceGraph`` — the degree-bucketed ELL graph: per bucket a gather,
+  multiply and reduce over the padded neighbor axis, the hub rows as one
+  dense matrix product, a zeros row for degree-0 nodes, and one gather
+  restoring node order.  These are ``index_select`` and ``torch.matmul``:
+  the JAX package leaves them to XLA, not to a Pallas kernel.  Built with
+  ``fuse_layers=True`` (the default) it also carries the permuted views of
+  merge-skip, and ``layer_sum`` runs ``sum_{k=1..K} A_norm^k @ ego`` with
+  one restore gather for all K layers: what the default ``Trainer`` and
+  ``test`` mode run.
+* ``ChunkedDeviceGraph`` — the source-chunked, destination-sliced layout
   (``to_device_chunked_graph``), which ``to_device_graph_auto`` picks
   above this card's gather knee (``GATHER_KNEE_ROWS``).
-* ``propagate_coo`` — ``index_add_`` over the dst-sorted COO list; the
-  in-port oracle for the ELL path.
+* ``ops/block_spmm.py::TiledDeviceGraph`` (the tile partition) and
+  ``parallel/spmd.py::ShardedGraph`` (one rank's rows) are kinds too.
+* ``CooGraph`` — ``index_add_`` over the dst-sorted COO list; the in-port
+  oracle.  Its backward is autograd's own scatter through the gathers, the
+  independent check on the symmetric one.
+
+``A_norm`` is symmetric, and so is ``sum_k A_norm^k``: every kind but the
+oracle propagates through ``_SymmetricProduct``, whose backward is the same
+product applied to the cotangent, never autograd's ``index_add_``.
 
 Index arrays are converted to int64 once, when a graph is shipped:
 ``index_select`` and ``index_add_`` take int64 indices.
 
 Spans (``utils/profiling.py``): ``spmm.forward`` / ``spmm.backward``
-around each propagation of the autograd functions, ``spmm.hub`` around
+around each propagation of ``_SymmetricProduct``, ``spmm.hub`` around
 each hub-row product, ``spmm.to_device`` around a graph's layout and
 upload; the counter ``spmm.gathered_rows`` counts the embedding rows a
 propagation gathers (ELL slots, padding included, and restore gathers).
@@ -34,6 +41,7 @@ propagation gathers (ELL slots, padding included, and restore gathers).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,105 +55,65 @@ from gcn_recommendation_tpu_torch.utils.profiling import span
 GATHERED_ROWS = "spmm.gathered_rows"
 
 
-@dataclasses.dataclass
-class DeviceGraph:
-    """Device-resident adjacency.  The COO view is empty unless built
-    with ``include_coo=True``.
+class _SymmetricProduct(torch.autograd.Function):
+    """``product(x)`` for a symmetric linear ``product``: the backward is
+    the same product on the cotangent, cast to ``x``'s dtype and handed
+    back in it (casts that do nothing unless the product's output dtype
+    is not ``x``'s, as in merge-skip's f32 sum over bf16 storage)."""
 
-    The two ``*_perm`` fields are the permuted-space views that let
-    multi-layer propagation skip the per-layer restore gather
-    (``propagate_sum_ell``): neighbor ids composed with ``gather_idx``, so
-    that layer k >= 2 gathers straight from layer k-1's bucket-concat
-    output, and the hub matrix with its columns moved into that parts
-    order.  Empty unless built with ``fuse_layers=True``."""
+    @staticmethod
+    def forward(ctx, x, product):
+        ctx.product, ctx.dtype = product, x.dtype
+        with span("spmm.forward"):
+            return product(x)
 
-    src: torch.Tensor                          # [nnz_pad] int64, dst-sorted COO
-    dst: torch.Tensor                          # [nnz_pad] int64
-    weight: torch.Tensor                       # [nnz_pad] compute dtype
-    bucket_nbr_idx: Tuple[torch.Tensor, ...]   # per bucket [nb, width] int64
-    bucket_nbr_w: Tuple[torch.Tensor, ...]     # per bucket [nb, width]
-    gather_idx: torch.Tensor                   # [num_nodes] int64 into
-                                               # concat(buckets, hub rows, zeros row)
-    dense_mat: torch.Tensor                    # [H, num_nodes] hub rows
-    bucket_nbr_idx_perm: Tuple[torch.Tensor, ...] = ()  # gather_idx[nbr_idx], int64
-    dense_mat_perm: Optional[torch.Tensor] = None       # [H, nrows], columns in parts order
-
-    @property
-    def fused(self) -> bool:
-        """True when the permuted views of ``propagate_sum_ell`` are here."""
-        return (len(self.bucket_nbr_idx_perm) == len(self.bucket_nbr_idx)
-                and self.dense_mat_perm is not None)
+    @staticmethod
+    def backward(ctx, grad):
+        with span("spmm.backward"):
+            return ctx.product(grad.to(ctx.dtype)).to(ctx.dtype), None
 
 
-def to_device_graph(
-    g: Graph,
-    compute_dtype: torch.dtype = torch.float32,
-    include_coo: bool = False,
-    device: DeviceLike = None,
-    dense_dtype: Optional[torch.dtype] = None,
-    fuse_layers: bool = True,
-) -> DeviceGraph:
-    """Ship the ELL view to ``device`` with weights in ``compute_dtype``
-    and the hub matrix in ``dense_dtype`` (default: ``compute_dtype``).
+class SymmetricGraph:
+    """Base of the graph kinds whose ``product(x)`` applies the symmetric
+    ``A_norm``: ``propagate`` differentiates it by the product itself."""
 
-    ``include_coo`` adds the COO view (~20 bytes per edge), which only
-    ``path='coo'`` reads.  ``fuse_layers`` (the JAX package's default)
-    adds the permuted views of ``propagate_sum_ell``: the hub matrix is
-    then resident twice (0.50 GB more for the books bundle's 1,748 x
-    72,001 f32 hub rows), the composed neighbor ids once more.  Callers
-    that propagate once or shard the graph pass ``fuse_layers=False``."""
-    with span("spmm.to_device"):
-        dev = resolve_device(device)
-        if dense_dtype is None:
-            dense_dtype = compute_dtype
+    # True on a DeviceGraph that carries the merge-skip views
+    fused = False
 
-        def idx(a):
-            return torch.as_tensor(a, dtype=torch.int64, device=dev)
-
-        def val(a, dtype=compute_dtype):
-            return torch.as_tensor(a, device=dev).to(dtype)
-
-        idx_perm, dense_perm = (), None
-        if fuse_layers:
-            # neighbor ids composed into parts order, on the host
-            gi = np.asarray(g.gather_idx, np.int64)
-            idx_perm = tuple(idx(gi[b.nbr_idx]) for b in g.buckets)
-            h = g.dense_mat.shape[0]
-            nrows = sum(b.nbr_idx.shape[0] for b in g.buckets) + h + 1
-            dp = np.zeros((h, nrows), g.dense_mat.dtype)
-            # column v of the node-space hub matrix lands at parts position
-            # gather_idx[v]; degree-0 nodes share the trailing zeros position,
-            # but their columns are all zero (no edges), so the collision is
-            # harmless (the last write wins over zeros)
-            dp[:, gi] = g.dense_mat
-            dense_perm = val(dp, dense_dtype)
-
-        empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
-        return DeviceGraph(
-            src=idx(g.src) if include_coo else empty_i,
-            dst=idx(g.dst) if include_coo else empty_i,
-            weight=val(g.weight) if include_coo
-            else torch.zeros(0, dtype=compute_dtype, device=dev),
-            bucket_nbr_idx=tuple(idx(b.nbr_idx) for b in g.buckets),
-            bucket_nbr_w=tuple(val(b.nbr_w) for b in g.buckets),
-            gather_idx=idx(g.gather_idx),
-            dense_mat=val(g.dense_mat, dense_dtype),
-            bucket_nbr_idx_perm=idx_perm,
-            dense_mat_perm=dense_perm,
-        )
+    def propagate(self, x: torch.Tensor) -> torch.Tensor:
+        return _SymmetricProduct.apply(x, self.product)
 
 
-def propagate_coo(
-    emb: torch.Tensor,
-    src: torch.Tensor,
-    dst: torch.Tensor,
-    weight: torch.Tensor,
-    num_nodes: int,
-) -> torch.Tensor:
-    """``out[v] = sum_{e: dst[e]=v} w[e] * emb[src[e]]``."""
-    msgs = emb.index_select(0, src) * weight[:, None]
-    out = torch.zeros((num_nodes, emb.shape[1]), dtype=emb.dtype, device=emb.device)
-    return out.index_add_(0, dst, msgs)
+def propagate(x: torch.Tensor, graph) -> torch.Tensor:
+    """One propagation step ``A_norm @ x`` over any graph kind, in ``x``'s
+    dtype, differentiable in ``x``."""
+    return graph.propagate(x)
+
+
+def layer_mean(ego: torch.Tensor, graph, n_layers: int,
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The LightGCN layer mean of ``ego, A ego, ..., A^K ego``: the layers
+    propagated in ``compute_dtype``, their mean taken in f32 and returned
+    in ``ego``'s dtype.  A graph with the merge-skip views (``fused``) at
+    K >= 2 takes one ``layer_sum``, as in the JAX package; any other
+    graph a running f32 sum of K ``propagate`` calls."""
+    if n_layers >= 2 and graph.fused:
+        s = graph.layer_sum(ego.to(compute_dtype), n_layers)
+        return ((ego.float() + s) / (n_layers + 1)).to(ego.dtype)
+    acc = ego.float()
+    x = ego.to(compute_dtype)
+    for _ in range(n_layers):
+        x = propagate(x, graph)
+        acc = acc + x.float()
+    return (acc / (n_layers + 1)).to(ego.dtype)
+
+
+def _idx(a, dev) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+
+def _val(a, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(a, device=dev).to(dtype)
 
 
 # Widths up to this use a sum of width-1 gathers instead of one
@@ -203,128 +171,151 @@ def _restore(parts, gather_idx):
 
 
 def _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
+    """``A_norm @ emb`` over ELL arrays (a ``DeviceGraph``'s, or one halo
+    shard's in ``parallel/halo.py``), in ``emb``'s dtype."""
     return _restore(_parts_matvec(emb, bucket_nbr_idx, bucket_nbr_w, dense_mat), gather_idx)
 
 
-class _PropagateEll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
-        ctx.graph = (bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
-        with span("spmm.forward"):
-            return _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+@dataclasses.dataclass
+class DeviceGraph(SymmetricGraph):
+    """Device-resident ELL adjacency plus dense hub rows.
 
-    @staticmethod
-    def backward(ctx, grad):
-        # A_norm is symmetric: d(emb) = A_norm^T @ grad = A_norm @ grad
-        with span("spmm.backward"):
-            return (_ell_matvec(grad, *ctx.graph),) + (None,) * 4
+    The two ``*_perm`` fields are the permuted-space views that let
+    multi-layer propagation skip the per-layer restore gather
+    (``layer_sum``): neighbor ids composed with ``gather_idx``, so that
+    layer k >= 2 gathers straight from layer k-1's bucket-concat output,
+    and the hub matrix with its columns moved into that parts order.
+    Empty unless built with ``fuse_layers=True``."""
+
+    bucket_nbr_idx: Tuple[torch.Tensor, ...]   # per bucket [nb, width] int64
+    bucket_nbr_w: Tuple[torch.Tensor, ...]     # per bucket [nb, width]
+    gather_idx: torch.Tensor                   # [num_nodes] int64 into
+                                               # concat(buckets, hub rows, zeros row)
+    dense_mat: torch.Tensor                    # [H, num_nodes] hub rows
+    bucket_nbr_idx_perm: Tuple[torch.Tensor, ...] = ()  # gather_idx[nbr_idx], int64
+    dense_mat_perm: Optional[torch.Tensor] = None       # [H, nrows], columns in parts order
+
+    @property
+    def fused(self) -> bool:
+        """True when the permuted views of ``layer_sum`` are here."""
+        return (len(self.bucket_nbr_idx_perm) == len(self.bucket_nbr_idx)
+                and self.dense_mat_perm is not None)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        return _ell_matvec(x, self.bucket_nbr_idx, self.bucket_nbr_w, self.gather_idx,
+                           self.dense_mat)
+
+    # Merge-skip.  Per-layer propagation ends every pass with an [N]-row
+    # restore gather whose only consumer is the next layer's bucket
+    # gathers.  Composing the restore permutation into those gathers when
+    # the graph is shipped (idx_perm = gather_idx[nbr_idx], the hub columns
+    # moved the same way) lets layers 2..K read layer k-1's parts table
+    # directly: K layers need one restore gather instead of K, and, sum_k
+    # A^k being symmetric, the backward is the same sum on the cotangent
+    # (2 restore gathers in a 3-layer training step instead of 6).
+
+    def _sum_product(self, n_layers: int, ego: torch.Tensor) -> torch.Tensor:
+        """``sum_{k=1..K} A^k @ ego`` in f32: the parts tables in ``ego``'s
+        dtype, their sum in f32, one restore gather at the end."""
+        p = _parts_matvec(ego, self.bucket_nbr_idx, self.bucket_nbr_w, self.dense_mat)
+        s = p.float()
+        for _ in range(n_layers - 1):
+            p = _parts_matvec(p, self.bucket_nbr_idx_perm, self.bucket_nbr_w,
+                              self.dense_mat_perm)
+            s = s + p.float()
+        return _restore(s, self.gather_idx)
+
+    def layer_sum(self, ego: torch.Tensor, n_layers: int) -> torch.Tensor:
+        """``sum_{k=1..K} A_norm^k @ ego`` in f32, whatever ``ego``'s dtype,
+        through the merge-skip views; differentiable in ``ego`` (the
+        gradient in ``ego``'s dtype)."""
+        return _SymmetricProduct.apply(ego, functools.partial(self._sum_product, n_layers))
 
 
-def propagate_ell(
+def to_device_graph(
+    g: Graph,
+    compute_dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+    dense_dtype: Optional[torch.dtype] = None,
+    fuse_layers: bool = True,
+) -> DeviceGraph:
+    """Ship the ELL view to ``device`` with weights in ``compute_dtype``
+    and the hub matrix in ``dense_dtype`` (default: ``compute_dtype``).
+
+    ``fuse_layers`` (the JAX package's default) adds the permuted views of
+    merge-skip: the hub matrix is then resident twice (0.50 GB more for
+    the books bundle's 1,748 x 72,001 f32 hub rows), the composed neighbor
+    ids once more.  Callers that propagate once or shard the graph pass
+    ``fuse_layers=False``."""
+    with span("spmm.to_device"):
+        dev = resolve_device(device)
+        if dense_dtype is None:
+            dense_dtype = compute_dtype
+
+        idx_perm, dense_perm = (), None
+        if fuse_layers:
+            # neighbor ids composed into parts order, on the host
+            gi = np.asarray(g.gather_idx, np.int64)
+            idx_perm = tuple(_idx(gi[b.nbr_idx], dev) for b in g.buckets)
+            h = g.dense_mat.shape[0]
+            nrows = sum(b.nbr_idx.shape[0] for b in g.buckets) + h + 1
+            dp = np.zeros((h, nrows), g.dense_mat.dtype)
+            # column v of the node-space hub matrix lands at parts position
+            # gather_idx[v]; degree-0 nodes share the trailing zeros position,
+            # but their columns are all zero (no edges), so the collision is
+            # harmless (the last write wins over zeros)
+            dp[:, gi] = g.dense_mat
+            dense_perm = _val(dp, dense_dtype, dev)
+
+        return DeviceGraph(
+            bucket_nbr_idx=tuple(_idx(b.nbr_idx, dev) for b in g.buckets),
+            bucket_nbr_w=tuple(_val(b.nbr_w, compute_dtype, dev) for b in g.buckets),
+            gather_idx=_idx(g.gather_idx, dev),
+            dense_mat=_val(g.dense_mat, dense_dtype, dev),
+            bucket_nbr_idx_perm=idx_perm,
+            dense_mat_perm=dense_perm,
+        )
+
+
+def propagate_coo(
     emb: torch.Tensor,
-    bucket_nbr_idx: Tuple[torch.Tensor, ...],
-    bucket_nbr_w: Tuple[torch.Tensor, ...],
-    gather_idx: torch.Tensor,
-    dense_mat: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    weight: torch.Tensor,
+    num_nodes: int,
 ) -> torch.Tensor:
-    """Scatter-free SpMM over the ELL adjacency plus dense hub rows,
-    differentiable in ``emb``."""
-    return _PropagateEll.apply(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+    """``out[v] = sum_{e: dst[e]=v} w[e] * emb[src[e]]``."""
+    msgs = emb.index_select(0, src) * weight[:, None]
+    out = torch.zeros((num_nodes, emb.shape[1]), dtype=emb.dtype, device=emb.device)
+    return out.index_add_(0, dst, msgs)
 
 
-# ---------------------------------------------------------------------------
-# Merge-skip: all K layers with one restore gather
-# ---------------------------------------------------------------------------
-#
-# Per-layer propagate_ell ends every pass with an [N]-row restore gather
-# whose only consumer is the next layer's bucket gathers.  Composing the
-# restore permutation into those gathers when the graph is shipped
-# (idx_perm = gather_idx[nbr_idx], the hub columns moved the same way)
-# lets layers 2..K read layer k-1's parts table directly: K layers need
-# one restore gather instead of K, and, sum_k A^k being symmetric, the
-# backward is the same sum on the cotangent (2 restore gathers in a
-# 3-layer training step instead of 6).
+@dataclasses.dataclass
+class CooGraph:
+    """The dst-sorted COO list on the device (~20 bytes an edge): the
+    in-port oracle of the other kinds.  It propagates through autograd's
+    own ``index_add_`` backward, not ``_SymmetricProduct``."""
+
+    src: torch.Tensor      # [nnz_pad] int64
+    dst: torch.Tensor      # [nnz_pad] int64
+    weight: torch.Tensor   # [nnz_pad] compute dtype
+    num_nodes: int
+
+    fused = False  # no merge-skip views: layer_mean runs it layer by layer
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        return propagate_coo(x, self.src, self.dst, self.weight, self.num_nodes)
+
+    propagate = product
 
 
-def _sum_matvec(n_layers, ego, bucket_idx, bucket_w, idx_perm, gather_idx, dense_mat,
-                dense_perm):
-    """``sum_{k=1..K} A^k @ ego`` in f32: the parts tables in ``ego``'s
-    dtype, their sum in f32, one restore gather at the end."""
-    p = _parts_matvec(ego, bucket_idx, bucket_w, dense_mat)
-    s = p.float()
-    for _ in range(n_layers - 1):
-        p = _parts_matvec(p, idx_perm, bucket_w, dense_perm)
-        s = s + p.float()
-    return _restore(s, gather_idx)
-
-
-class _PropagateSumEll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, n_layers, ego, bucket_idx, bucket_w, idx_perm, gather_idx, dense_mat,
-                dense_perm):
-        ctx.n_layers = n_layers
-        ctx.dtype = ego.dtype
-        ctx.graph = (bucket_idx, bucket_w, idx_perm, gather_idx, dense_mat, dense_perm)
-        with span("spmm.forward"):
-            return _sum_matvec(n_layers, ego, *ctx.graph)
-
-    @staticmethod
-    def backward(ctx, grad):
-        # sum_k A^k is symmetric (A is): d(ego) is the same fused sum on the
-        # cotangent, cast to the primal's storage dtype and handed back in it
-        with span("spmm.backward"):
-            d_ego = _sum_matvec(ctx.n_layers, grad.to(ctx.dtype), *ctx.graph)
-            return (None, d_ego.to(ctx.dtype)) + (None,) * 6
-
-
-def propagate_sum_ell(
-    n_layers: int,
-    ego: torch.Tensor,
-    bucket_idx: Tuple[torch.Tensor, ...],
-    bucket_w: Tuple[torch.Tensor, ...],
-    idx_perm: Tuple[torch.Tensor, ...],
-    gather_idx: torch.Tensor,
-    dense_mat: torch.Tensor,
-    dense_perm: torch.Tensor,
-) -> torch.Tensor:
-    """``sum_{k=1..K} A_norm^k @ ego`` in f32, whatever ``ego``'s dtype,
-    scatter-free, with one restore gather in all; differentiable in
-    ``ego``.  Callers form the LightGCN layer mean as ``(ego + result) /
-    (K + 1)``."""
-    return _PropagateSumEll.apply(
-        n_layers, ego, bucket_idx, bucket_w, idx_perm, gather_idx, dense_mat, dense_perm)
-
-
-def propagate(emb: torch.Tensor, graph, num_nodes: int, *, path: str = "ell"):
-    """One propagation step ``A_norm @ emb``.  ``graph`` is a DeviceGraph
-    (``path`` 'ell' or 'coo'), a ChunkedDeviceGraph (the source-chunked
-    layout) or an ``ops/block_spmm.py`` TiledDeviceGraph; the last two
-    always take their own path."""
-    from gcn_recommendation_tpu_torch.ops.block_spmm import (
-        TiledDeviceGraph,
-        propagate_ell_tiles,
-    )
-
-    if isinstance(graph, TiledDeviceGraph):
-        return propagate_ell_tiles(emb, graph.base, graph.tiles)
-    if isinstance(graph, ChunkedDeviceGraph):
-        return propagate_chunked(
-            emb, graph.chunk_bucket_idx, graph.chunk_bucket_w, graph.chunk_gather_idx,
-            graph.dense_mat, graph.dense_gather_idx,
-        )
-    if path == "ell":
-        return propagate_ell(
-            emb, graph.bucket_nbr_idx, graph.bucket_nbr_w, graph.gather_idx,
-            graph.dense_mat,
-        )
-    if path == "coo":
-        if graph.src.shape[0] == 0:
-            raise ValueError(
-                "COO view not on device — build with "
-                "to_device_graph(..., include_coo=True)"
-            )
-        return propagate_coo(emb, graph.src, graph.dst, graph.weight, num_nodes)
-    raise ValueError(f"unknown propagation path {path!r}")
+def to_device_coo_graph(g: Graph, compute_dtype: torch.dtype = torch.float32,
+                        device: DeviceLike = None) -> CooGraph:
+    """Ship the COO view of ``g`` to ``device``, weights in ``compute_dtype``."""
+    with span("spmm.to_device"):
+        dev = resolve_device(device)
+        return CooGraph(src=_idx(g.src, dev), dst=_idx(g.dst, dev),
+                        weight=_val(g.weight, compute_dtype, dev), num_nodes=g.num_nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -390,10 +381,11 @@ def to_device_graph_auto(
     device: DeviceLike = None,
 ):
     """The plain or the source-chunked device graph by the knee rule (the
-    JAX package's rule, over this card's ``num_chunks_for``).  The
-    single-device entry points share it: ``test`` mode (fused, the
-    default) and serving (``fuse_layers=False``: it propagates once, and
-    the permuted views would hold the hub matrix twice)."""
+    JAX package's rule, over this card's ``num_chunks_for``).  Every
+    single-device entry point takes it: the ``Trainer`` (below the knee
+    after its tile partition), ``test`` mode (fused, the default) and
+    serving (``fuse_layers=False``: it propagates once, and the permuted
+    views would hold the hub matrix twice)."""
     n_chunks = num_chunks_for(g.num_nodes, embedding_dim, compute_dtype)
     if n_chunks > 1:
         return to_device_chunked_graph(
@@ -404,7 +396,7 @@ def to_device_graph_auto(
 
 
 @dataclasses.dataclass
-class ChunkedDeviceGraph:
+class ChunkedDeviceGraph(SymmetricGraph):
     """Device-resident source-chunked, destination-sliced adjacency
     (``graph/build.py::build_chunked_ell``).
 
@@ -418,6 +410,43 @@ class ChunkedDeviceGraph:
     chunk_gather_idx: Tuple[Tuple[torch.Tensor, ...], ...]  # [C][S] x [slice rows] int64
     dense_mat: torch.Tensor                                 # [H, num_nodes]
     dense_gather_idx: torch.Tensor                          # [num_nodes] -> H rows + zeros
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunk_gather_idx)
+
+    def product(self, emb: torch.Tensor) -> torch.Tensor:
+        """``A_norm @ emb`` in ``emb``'s dtype (f32 accumulation)."""
+        n, d = emb.shape
+        c = self.num_chunks
+        s = len(self.chunk_gather_idx[0])
+        chunk_rows = -(-n // c)
+        pad = c * chunk_rows - n
+        src = torch.cat([emb, emb.new_zeros((pad, d))]) if pad else emb
+
+        # the cross-chunk and hub partial sums accumulate in f32 even in bf16
+        # storage (a bf16 accumulator would round each row C+1 times), with one
+        # cast at the end.  One accumulator per destination slice: each cell's
+        # merge gather reads a parts table of at most slice_rows rows, and the
+        # slices concatenate in node order.  A cell's [nb, width, d]
+        # intermediates are freed as soon as its bucket is reduced.
+        zeros_row = emb.new_zeros((1, d), dtype=torch.float32)
+        slice_acc = [None] * s
+        for ci in range(c):
+            sub = src.narrow(0, ci * chunk_rows, chunk_rows)
+            for ti in range(s):
+                cell_idx = self.chunk_bucket_idx[ci][ti]
+                if profiling.collecting():
+                    profiling.count(GATHERED_ROWS, sum(i.numel() for i in cell_idx))
+                parts = [_bucket_reduce(sub, idx, w)
+                         for idx, w in zip(cell_idx, self.chunk_bucket_w[ci][ti])]
+                out_ct = _restore(torch.cat(parts + [zeros_row]), self.chunk_gather_idx[ci][ti])
+                slice_acc[ti] = out_ct if slice_acc[ti] is None else slice_acc[ti] + out_ct
+        acc = torch.cat(slice_acc) if s > 1 else slice_acc[0]
+        if self.dense_mat.shape[0]:
+            hub = torch.cat([_hub_rows(self.dense_mat, emb), zeros_row])
+            acc = acc + _restore(hub, self.dense_gather_idx)
+        return acc.to(emb.dtype)
 
 
 def to_device_chunked_graph(
@@ -433,85 +462,15 @@ def to_device_chunked_graph(
         if dense_dtype is None:
             dense_dtype = compute_dtype
         per_cell_buckets, per_cell_gidx, dense_gidx = build_chunked_ell(g, num_chunks)
-
-        def idx(a):
-            return torch.as_tensor(a, dtype=torch.int64, device=dev)
-
-        def val(a, dtype=compute_dtype):
-            return torch.as_tensor(a, device=dev).to(dtype)
-
         return ChunkedDeviceGraph(
             chunk_bucket_idx=tuple(
-                tuple(tuple(idx(b.nbr_idx) for b in buckets) for buckets in cell)
+                tuple(tuple(_idx(b.nbr_idx, dev) for b in buckets) for buckets in cell)
                 for cell in per_cell_buckets),
             chunk_bucket_w=tuple(
-                tuple(tuple(val(b.nbr_w) for b in buckets) for buckets in cell)
+                tuple(tuple(_val(b.nbr_w, compute_dtype, dev) for b in buckets)
+                      for buckets in cell)
                 for cell in per_cell_buckets),
-            chunk_gather_idx=tuple(tuple(idx(gi) for gi in cell) for cell in per_cell_gidx),
-            dense_mat=val(g.dense_mat, dense_dtype),
-            dense_gather_idx=idx(dense_gidx),
+            chunk_gather_idx=tuple(tuple(_idx(gi, dev) for gi in cell) for cell in per_cell_gidx),
+            dense_mat=_val(g.dense_mat, dense_dtype, dev),
+            dense_gather_idx=_idx(dense_gidx, dev),
         )
-
-
-def _chunked_matvec(emb, chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat,
-                    dense_gather_idx):
-    n, d = emb.shape
-    c = len(chunk_gather_idx)
-    s = len(chunk_gather_idx[0])
-    chunk_rows = -(-n // c)
-    pad = c * chunk_rows - n
-    src = torch.cat([emb, emb.new_zeros((pad, d))]) if pad else emb
-
-    # the cross-chunk and hub partial sums accumulate in f32 even in bf16
-    # storage (a bf16 accumulator would round each row C+1 times), with one
-    # cast at the end.  One accumulator per destination slice: each cell's
-    # merge gather reads a parts table of at most slice_rows rows, and the
-    # slices concatenate in node order.  A cell's [nb, width, d]
-    # intermediates are freed as soon as its bucket is reduced.
-    zeros_row = emb.new_zeros((1, d), dtype=torch.float32)
-    slice_acc = [None] * s
-    for ci in range(c):
-        sub = src.narrow(0, ci * chunk_rows, chunk_rows)
-        for ti in range(s):
-            cell_idx = chunk_bucket_idx[ci][ti]
-            if profiling.collecting():
-                profiling.count(GATHERED_ROWS, sum(i.numel() for i in cell_idx))
-            parts = [_bucket_reduce(sub, idx, w)
-                     for idx, w in zip(cell_idx, chunk_bucket_w[ci][ti])]
-            out_ct = _restore(torch.cat(parts + [zeros_row]), chunk_gather_idx[ci][ti])
-            slice_acc[ti] = out_ct if slice_acc[ti] is None else slice_acc[ti] + out_ct
-    acc = torch.cat(slice_acc) if s > 1 else slice_acc[0]
-    if dense_mat.shape[0]:
-        hub = torch.cat([_hub_rows(dense_mat, emb), zeros_row])
-        acc = acc + _restore(hub, dense_gather_idx)
-    return acc.to(emb.dtype)
-
-
-class _PropagateChunked(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, emb, chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat,
-                dense_gather_idx):
-        ctx.graph = (chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat,
-                     dense_gather_idx)
-        with span("spmm.forward"):
-            return _chunked_matvec(emb, *ctx.graph)
-
-    @staticmethod
-    def backward(ctx, grad):
-        # A^T = A: the backward is the same chunked product on the cotangent
-        with span("spmm.backward"):
-            return (_chunked_matvec(grad, *ctx.graph),) + (None,) * 5
-
-
-def propagate_chunked(
-    emb: torch.Tensor,
-    chunk_bucket_idx,
-    chunk_bucket_w,
-    chunk_gather_idx,
-    dense_mat: torch.Tensor,
-    dense_gather_idx: torch.Tensor,
-) -> torch.Tensor:
-    """Scatter-free ``A_norm @ emb`` over the source-chunked layout, in
-    ``emb``'s dtype (f32 accumulation), differentiable in ``emb``."""
-    return _PropagateChunked.apply(
-        emb, chunk_bucket_idx, chunk_bucket_w, chunk_gather_idx, dense_mat, dense_gather_idx)

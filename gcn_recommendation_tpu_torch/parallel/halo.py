@@ -297,10 +297,9 @@ class HaloTrainer(ShardedTrainer):
     """
 
     schedule = "halo"
-    graph_chunking = False  # shard_ell takes the plain COO layout
-    graph_fuse_layers = False
 
     def _device_graph(self):
+        """This rank's shard of ``shard_ell`` over the padded COO list."""
         m = self.model
         coo = pad_coo_node_space(self.bundle.graph, m.num_users_pad, m.num_items_pad,
                                  m.num_brands_pad)

@@ -8,13 +8,13 @@ would:
 * **Tensor parallelism.**  The embedding tables and their Adam moments
   are row-sharded over ``model`` (``shard_params``): each rank stores
   ``rows / m`` rows of each table.  Each ELL bucket's rows and the hub
-  rows are row-sharded too (``shard_graph``); the COO arrays and the node
-  gather index stay whole.  A propagation layer takes the whole node
-  block, reduces this rank's rows of every bucket, and all-gathers the
-  bucket outputs over ``model``; the layer-0 block is the all-gather of
-  the three tables.  ``A_norm`` is symmetric, so a layer's backward is the
-  same sharded product on the cotangent (one all-gather), as the
-  single-device ELL path's backward is its forward.
+  rows are row-sharded too (``shard_graph``); the node gather index stays
+  whole.  A propagation layer takes the whole node block, reduces this
+  rank's rows of every bucket, and all-gathers the bucket outputs over
+  ``model``; the layer-0 block is the all-gather of the three tables.
+  ``A_norm`` is symmetric, so a layer's backward is the same sharded
+  product on the cotangent (one all-gather), as the single-device ELL
+  path's backward is its forward.
 * **Data parallelism.**  Every rank draws the same whole batch and
   negatives from the same generator state and keeps its ``data`` slice;
   gradients are averaged over ``data`` (and summed over ``model`` for the
@@ -44,7 +44,10 @@ from gcn_recommendation_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from gcn_recommendation_tpu_torch.ops.quant import quantized_scores
 from gcn_recommendation_tpu_torch.ops.spmm import (
     DeviceGraph,
+    SymmetricGraph,
     _bucket_reduce,
+    _hub_rows,
+    layer_mean,
     to_device_graph,
 )
 from gcn_recommendation_tpu_torch.ops.topk import (
@@ -115,12 +118,9 @@ def shard_params(params: dict, mesh, row_keys=None) -> dict:
 
 
 @dataclasses.dataclass
-class ShardedGraph:
+class ShardedGraph(SymmetricGraph):
     """This rank's share of the ELL adjacency (``shard_graph``)."""
 
-    src: torch.Tensor                         # COO view, whole (may be empty)
-    dst: torch.Tensor
-    weight: torch.Tensor
     bucket_nbr_idx: Tuple[torch.Tensor, ...]  # this rank's rows (or all rows)
     bucket_nbr_w: Tuple[torch.Tensor, ...]
     bucket_sharded: Tuple[bool, ...]          # False: the bucket stays whole
@@ -130,12 +130,29 @@ class ShardedGraph:
                                               # sharded rows | whole rows | zeros]
     group: object                             # the model axis's process group
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """``A_norm @ x`` for a whole node block ``x`` that every rank of
+        the model axis holds alike: this rank's bucket and hub rows, one
+        all-gather of them, the whole buckets, and the node gather.  The
+        cotangent is alike on every model rank too, so the backward is
+        this product on it."""
+        d = x.shape[1]
+        mine, whole = [], []
+        for idx, w, s in zip(self.bucket_nbr_idx, self.bucket_nbr_w, self.bucket_sharded):
+            (mine if s else whole).append(_bucket_reduce(x, idx, w).to(x.dtype))
+        if self.dense_mat.shape[0]:
+            hub = _hub_rows(self.dense_mat, x).to(x.dtype)
+            (mine if self.dense_sharded else whole).append(hub)
+        local = torch.cat(mine) if mine else x.new_zeros((0, d))
+        gathered = all_gather_rows(local, self.group)
+        return torch.cat([gathered, *whole, x.new_zeros((1, d))]).index_select(0, self.gather_idx)
+
 
 def shard_graph(graph: DeviceGraph, mesh) -> ShardedGraph:
-    """Shard the bucket rows and hub rows over the model axis; the COO
-    arrays and the gather index stay whole (the index is rewritten for the
-    all-gathered layout).  A bucket whose rows do not divide the axis stays
-    whole on every rank, with JAX's warning when it is large."""
+    """Shard the bucket rows and hub rows over the model axis; the gather
+    index stays whole (rewritten for the all-gathered layout).  A bucket
+    whose rows do not divide the axis stays whole on every rank, with
+    JAX's warning when it is large."""
     n_model = mesh.shape[MODEL_AXIS]
 
     def divides(rows, what):
@@ -175,7 +192,6 @@ def shard_graph(graph: DeviceGraph, mesh) -> ShardedGraph:
             whole_off += n
         old_off += n
     return ShardedGraph(
-        src=graph.src, dst=graph.dst, weight=graph.weight,
         bucket_nbr_idx=tuple(_shard(b, mesh) if s else b
                              for b, s in zip(graph.bucket_nbr_idx, sharded)),
         bucket_nbr_w=tuple(_shard(b, mesh) if s else b
@@ -188,56 +204,17 @@ def shard_graph(graph: DeviceGraph, mesh) -> ShardedGraph:
     )
 
 
-def sharded_ell_matvec(x: torch.Tensor, g: ShardedGraph) -> torch.Tensor:
-    """``A_norm @ x`` for a whole node block ``x`` that every rank of the
-    model axis holds alike: this rank's bucket and hub rows, one all-gather
-    of them, the whole buckets, and the node gather.  Not differentiable
-    (``propagate_sharded`` is)."""
-    d = x.shape[1]
-    mine, whole = [], []
-    for idx, w, s in zip(g.bucket_nbr_idx, g.bucket_nbr_w, g.bucket_sharded):
-        (mine if s else whole).append(_bucket_reduce(x, idx, w).to(x.dtype))
-    if g.dense_mat.shape[0]:
-        hub = torch.matmul(g.dense_mat.float(), x.to(g.dense_mat.dtype).float()).to(x.dtype)
-        (mine if g.dense_sharded else whole).append(hub)
-    local = torch.cat(mine) if mine else x.new_zeros((0, d))
-    gathered = all_gather_rows(local, g.group)
-    return torch.cat([gathered, *whole, x.new_zeros((1, d))]).index_select(0, g.gather_idx)
-
-
-class _PropagateSharded(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, g):
-        ctx.g = g
-        return sharded_ell_matvec(x, g)
-
-    @staticmethod
-    def backward(ctx, grad):
-        # A_norm is symmetric and the cotangent is alike on every model rank
-        return sharded_ell_matvec(grad, ctx.g), None
-
-
-def propagate_sharded(x: torch.Tensor, g: ShardedGraph) -> torch.Tensor:
-    """Differentiable ``sharded_ell_matvec``."""
-    return _PropagateSharded.apply(x, g)
-
-
 def make_gspmd_table_propagator(mesh, graph: ShardedGraph, n_layers: int,
                                 compute_dtype=torch.float32):
     """``fn(user, item, brand) -> final [N_pad, d]`` over ROW-SHARDED
     tables: the layer-0 block is the all-gather of the three tables in node
-    order, each layer a ``propagate_sharded``, the layer mean in f32 on the
-    whole block (every model rank holds the result)."""
+    order, then ``ops/spmm.py::layer_mean`` over the ``ShardedGraph`` on
+    the whole block (every model rank holds the result)."""
     group = mesh.group(MODEL_AXIS)
 
     def propagate(u, i, b):
         ego = torch.cat([gather_rows(t, group) for t in (u, i, b)])
-        acc = ego.float()
-        x = ego.to(compute_dtype)
-        for _ in range(n_layers):
-            x = propagate_sharded(x, graph)
-            acc = acc + x.float()
-        return (acc / (n_layers + 1)).to(ego.dtype)
+        return layer_mean(ego, graph, n_layers, compute_dtype)
 
     return propagate
 
@@ -260,10 +237,6 @@ class ShardedTrainer(Trainer):
     """
 
     schedule = "gspmd"
-    # shard_graph takes the plain, per-layer ELL layout: no source chunks
-    # (the row shards already split the tables) and no merge-skip views
-    graph_chunking = False
-    graph_fuse_layers = False
 
     def __init__(self, config, model, bundle, mesh, logger=None):
         if config.tile_spmm:
@@ -297,6 +270,8 @@ class ShardedTrainer(Trainer):
 
     # --- graph and forward ---
     def _device_graph(self):
+        """The plain, per-layer ELL layout, sharded: no source chunks (the
+        row shards already split the tables) and no merge-skip views."""
         g = self.model.padded_graph(self.bundle.graph)
         cdtype = getattr(torch, self.config.compute_dtype)
         return shard_graph(to_device_graph(g, compute_dtype=cdtype, device=self.device,

@@ -9,7 +9,8 @@ imports, and the build of the port's CUDA kernels.  So each variant runs
 in a fresh Python process:
 
 * ``fused``     — merge-skip fused layers (``Trainer`` default)
-* ``per-layer`` — per-layer propagation (``graph_fuse_layers = False``)
+* ``per-layer`` — per-layer propagation (a ``Trainer`` whose
+  ``_device_graph`` builds the ELL graph without the merge-skip views)
 
 on the bench bundle (50k users / 20k items / 2k brands, degree 28, core 8,
 seed 42; dim 64 x 3 layers, batch 2048), with ``SCAN_STEPS`` steps as the
@@ -66,6 +67,7 @@ def child(args) -> dict:
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
     from gcn_recommendation_tpu_torch.kernels import _build
     from gcn_recommendation_tpu_torch.models import get_model
+    from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
     from gcn_recommendation_tpu_torch.train.trainer import Trainer
     from gcn_recommendation_tpu_torch.utils.timing import device_line
 
@@ -99,7 +101,12 @@ def child(args) -> dict:
     fused = args.variant == "fused"
 
     class _T(Trainer):
-        graph_fuse_layers = fused
+        def _device_graph(self):
+            if fused:
+                return super()._device_graph()
+            return to_device_graph(self.model.padded_graph(self.bundle.graph),
+                                   compute_dtype=getattr(torch, self.config.compute_dtype),
+                                   device=self.device, fuse_layers=False)
 
     t0 = time.perf_counter()
     model = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,

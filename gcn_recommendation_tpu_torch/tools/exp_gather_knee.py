@@ -7,8 +7,9 @@ CUDA card: for random user-item graphs of about 72k, 180k, 400k and 1M
 nodes (users : items = 50 : 20, as the books bundle, 28 interactions per
 user, built with ``build_normalized_adjacency`` on the native path), the
 time of one propagation ``A_norm @ emb`` at d = 64 in f32 and in bf16
-storage, plain ELL (``propagate_ell``) against the chunked layout at
-C = 2 and C = 4 (``propagate_chunked``), in turns, ``repeats`` times.
+storage, plain ELL (a per-layer ``DeviceGraph``) against the chunked
+layout at C = 2 and C = 4 (``ChunkedDeviceGraph``), each through
+``ops/spmm.py::propagate``, in turns, ``repeats`` times.
 Each chunked result is held against the plain one.
 
     python -m gcn_recommendation_tpu_torch.tools.exp_gather_knee \
@@ -35,8 +36,7 @@ from gcn_recommendation_tpu_torch.data import native_ext
 from gcn_recommendation_tpu_torch.graph.build import build_normalized_adjacency
 from gcn_recommendation_tpu_torch.ops.spmm import (
     ChunkedDeviceGraph,
-    propagate_chunked,
-    propagate_ell,
+    propagate,
     to_device_chunked_graph,
     to_device_graph,
 )
@@ -100,17 +100,9 @@ def scan(device, sizes=SIZES, chunks=CHUNKS, repeats: int = REPEATS,
         for name, dtype in DTYPES.items():
             # bf16 storage: the same layouts with their weights cast on the card
             layouts = {key: cast_layout(lay, dtype) for key, lay in f32.items()}
-            plain = layouts["plain"]
             emb = torch.randn(g.num_nodes, DIM, generator=torch.Generator().manual_seed(n))
             emb = emb.to(device=device, dtype=dtype)
-            calls = {
-                "plain": lambda: propagate_ell(emb, plain.bucket_nbr_idx, plain.bucket_nbr_w,
-                                               plain.gather_idx, plain.dense_mat)}
-            for c in chunks:
-                cg = layouts[f"c{c}"]
-                calls[f"c{c}"] = lambda cg=cg: propagate_chunked(
-                    emb, cg.chunk_bucket_idx, cg.chunk_bucket_w, cg.chunk_gather_idx,
-                    cg.dense_mat, cg.dense_gather_idx)
+            calls = {key: lambda lay=lay: propagate(emb, lay) for key, lay in layouts.items()}
             want = calls["plain"]().float()
             scale = max(1.0, want.abs().max().item())
             for key in calls:
@@ -124,7 +116,7 @@ def scan(device, sizes=SIZES, chunks=CHUNKS, repeats: int = REPEATS,
                 for key, fn in calls.items():
                     times[key].append(cuda_ms(fn, reps=4, windows=3, warmup=1))
             rec[f"{name}_ms"] = times
-            del layouts, plain, calls, emb
+            del layouts, calls, emb
         del f32
         torch.cuda.empty_cache()
         out["sizes"][str(n)] = rec

@@ -6,7 +6,7 @@ buckets for the hub matrix (``graph/build.py``): an ``[H, N]`` dense
 product that replaces that row's gathers.  This sweeps the threshold over
 the JAX tool's values (512, 320, 256, 192, 128, 96) on its graph (50k
 users / 20k items / 2k brands, degree 28, core 8) and times one
-propagation of the port's ``propagate_ell`` (d = 64): forward, and
+per-layer propagation of the port's ELL ``DeviceGraph`` (d = 64): forward, and
 forward + backward (the gradient of ``sum(out**2)``, one step of
 ``e -= 1e-3 * grad``).  The port builds its graphs at 128, the JAX
 package's value, which this measures on the card.
@@ -51,7 +51,7 @@ def main(argv=None) -> dict:
 
     from gcn_recommendation_tpu_torch.core.device import resolve_device
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
     from gcn_recommendation_tpu_torch.utils.timing import cuda_windows, device_line, host_windows
 
     dev = resolve_device(args.device)
@@ -67,18 +67,17 @@ def main(argv=None) -> dict:
         emb = torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32) * 0.1).to(dev)
         padded = sum(b.nbr_idx.size for b in g.buckets)
         h = len(g.dense_node_ids)
-        graph_args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
         cur = {}
 
         @torch.no_grad()
         def fwd():
             for _ in range(args.chain):
-                cur["e"] = propagate_ell(cur["e"], *graph_args)
+                cur["e"] = propagate(cur["e"], dg)
 
         def fwdbwd():
             for _ in range(args.chain):
                 e = cur["e"].requires_grad_(True)
-                (grad,) = torch.autograd.grad((propagate_ell(e, *graph_args) ** 2).sum(), e)
+                (grad,) = torch.autograd.grad((propagate(e, dg) ** 2).sum(), e)
                 cur["e"] = (e - 1e-3 * grad).detach()
 
         res = {}

@@ -39,7 +39,11 @@ from gcn_recommendation_tpu_torch.core.device import resolve_device
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import quant
-from gcn_recommendation_tpu_torch.ops.spmm import ChunkedDeviceGraph, to_device_chunked_graph
+from gcn_recommendation_tpu_torch.ops.spmm import (
+    ChunkedDeviceGraph,
+    to_device_chunked_graph,
+    to_device_graph,
+)
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
 
@@ -87,22 +91,20 @@ def trainer_class(chunks: Optional[int]):
         return Trainer
 
     class ForcedLayoutTrainer(Trainer):
-        graph_chunking = False
-
         def _device_graph(self):
+            g = self.model.padded_graph(self.bundle.graph)
+            cdtype = getattr(torch, self.config.compute_dtype)
             if chunks == 0:
-                return super()._device_graph()
+                return to_device_graph(g, compute_dtype=cdtype, device=self.device)
             print(f"Graph: source-chunked gathers ({chunks} chunks, forced)")
-            return to_device_chunked_graph(
-                self.model.padded_graph(self.bundle.graph), chunks,
-                compute_dtype=getattr(torch, self.config.compute_dtype), device=self.device)
+            return to_device_chunked_graph(g, chunks, compute_dtype=cdtype, device=self.device)
 
     return ForcedLayoutTrainer
 
 
 def layout_of(graph) -> str:
     if isinstance(graph, ChunkedDeviceGraph):
-        return f"chunked C={len(graph.chunk_gather_idx)}"
+        return f"chunked C={graph.num_chunks}"
     return "plain ELL (merge-skip)" if getattr(graph, "fused", False) else type(graph).__name__
 
 

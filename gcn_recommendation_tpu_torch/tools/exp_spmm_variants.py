@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``tools/exp_spmm_variants.py``, on its
 graph (50k users / 20k items / 2k brands, degree 28, core 8, seed 42; the
 view of ``to_device_graph(g)`` with its default arguments), d = 64:
 
-  bucketed  the port's production ELL matvec (``ops/spmm.py::_ell_matvec``:
+  bucketed  the port's production ELL matvec (``DeviceGraph.product``:
             per degree bucket a gather, multiply and reduce through
             ``_bucket_reduce``, the hub product, the restore gather)
   flat      one ``index_select`` over the concatenated padded neighbor
@@ -17,8 +17,8 @@ forward and forward + backward (one step ``e -= 1e-3 * grad(sum(A e)^2)``)
 over chains of ``CHAIN`` dependent calls, with the host (CUDA events
 around eager calls, ``cuda_ms``) and without it (the same calls replayed
 from a CUDA graph, ``graph_ms``); the gap is the host's share.  The
-bucketed backward is the production symmetric one (``_PropagateEll``:
-the same gather product on the cotangent); the flat form's is autograd's
+bucketed backward is the production symmetric one (``_SymmetricProduct``
+of ``ops/spmm.py``: the same gather product on the cotangent); the flat form's is autograd's
 (``index_add_`` through its gathers).  One ``torch.profiler`` pass counts
 the CUDA kernels of one call.  The numbers agree first: ``max |bucketed
 - flat| < 1e-4``, the JAX tool's own check.
@@ -56,10 +56,8 @@ def flat_layout(dg):
 
 
 def matvec_bucketed(emb, dg):
-    """The production ELL matvec (forward of ``propagate_ell``)."""
-    from gcn_recommendation_tpu_torch.ops.spmm import _ell_matvec
-
-    return _ell_matvec(emb, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
+    """The production ELL matvec (the forward of ``propagate`` over ``dg``)."""
+    return dg.product(emb)
 
 
 def matvec_flat(emb, dg, flat):
@@ -104,7 +102,7 @@ def main(argv=None) -> dict:
 
     from gcn_recommendation_tpu_torch.core.device import resolve_device
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
     from gcn_recommendation_tpu_torch.utils.timing import (
         cuda_windows,
         device_line,
@@ -134,12 +132,11 @@ def main(argv=None) -> dict:
     print(f"max |bucketed - flat| = {err:.2e}", flush=True)
     if not err < 1e-4:
         raise AssertionError(f"bucketed and flat disagree: {err:.2e}")
-    print("backward: bucketed = the production symmetric backward (_PropagateEll, the "
+    print("backward: bucketed = the production symmetric backward (_SymmetricProduct, the "
           "same gather product on the cotangent); flat = autograd's (index_add_ "
           "through its gathers)", flush=True)
 
-    graph_args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
-    forms = {"bucketed": lambda e: propagate_ell(e, *graph_args),
+    forms = {"bucketed": lambda e: propagate(e, dg),
              "flat": lambda e: matvec_flat(e, dg, flat)}
     rows = []
     for name, fn in forms.items():

@@ -99,7 +99,7 @@ def main(argv=None) -> dict:
     from gcn_recommendation_tpu_torch.models import get_model
     from gcn_recommendation_tpu_torch.ops.spmm import (
         _bucket_reduce,
-        propagate_ell,
+        propagate,
         to_device_graph,
     )
     from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
@@ -195,8 +195,7 @@ def main(argv=None) -> dict:
         adam_step(dot_loss)
 
     def prop(x):
-        return propagate_ell(x, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx,
-                             dg.dense_mat)
+        return propagate(x, dg)
 
     def layer_mean(e):
         acc, x = e, e

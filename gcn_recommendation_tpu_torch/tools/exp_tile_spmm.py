@@ -4,12 +4,13 @@ Counterpart of the JAX package's ``tools/exp_tile_spmm.py``: on the
 heavy-tailed bench graph (50k users / 20k items / 2k brands, degree 28,
 core 8, the latent generator with ``pop_zipf=0.6``, ``deg_sigma=1.0``,
 ``spectrum=1.0``, ``split="rank"``, ``rank_key="taste"``), the production
-tile path (``ops/block_spmm.py::propagate_ell_tiles``: the residual ELL
+tile path (``ops/block_spmm.py::TiledDeviceGraph``: the residual ELL
 and hub rows plus the tiles through ``tile_matvec``, the CUDA kernel of
-the tiles' layout) is timed against the plain ``propagate_ell`` on the
-same graph, for ``min_fill`` 64 and 128 and f32 and bf16 tiles, forward
-and forward + backward (the gradient of ``sum(out**2)``, one step of
-``e -= 1e-3 * grad``).  It prints the partition, the largest difference
+the tiles' layout) is timed against the plain per-layer ELL
+``DeviceGraph`` on the same graph, both through ``ops/spmm.py::propagate``,
+for ``min_fill`` 64 and 128 and f32 and bf16 tiles, forward and forward +
+backward (the gradient of ``sum(out**2)``, one step of ``e -= 1e-3 *
+grad``).  It prints the partition, the largest difference
 from the ELL propagation, and each time beside ELL's, as the JAX tool
 does.
 
@@ -58,8 +59,8 @@ def main(argv=None) -> dict:
 
     from gcn_recommendation_tpu_torch.core.device import resolve_device
     from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
-    from gcn_recommendation_tpu_torch.ops.block_spmm import propagate_ell_tiles, to_device_tiles
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+    from gcn_recommendation_tpu_torch.ops.block_spmm import TiledDeviceGraph, to_device_tiles
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
     from gcn_recommendation_tpu_torch.utils.timing import cuda_windows, device_line, host_windows
 
     dev = resolve_device(args.device)
@@ -101,10 +102,9 @@ def main(argv=None) -> dict:
         return out
 
     dg = to_device_graph(g, fuse_layers=False, device=dev)
-    ell_args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
-    baseline = time_variant("ell (plain)", lambda e: propagate_ell(e, *ell_args))
+    baseline = time_variant("ell (plain)", lambda e: propagate(e, dg))
     with torch.no_grad():
-        ref = propagate_ell(emb0, *ell_args)
+        ref = propagate(emb0, dg)
     result = {"device": str(dev), "nnz": int(g.nnz), "ell": baseline, "cases": []}
     for min_fill in args.min_fills:
         part = partition_tiles(g, min_fill=min_fill)
@@ -119,15 +119,16 @@ def main(argv=None) -> dict:
         dres = to_device_graph(part.residual, fuse_layers=False, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             tiles = to_device_tiles(part, tile_dtype=dtype, device=dev)
+            tg = TiledDeviceGraph(base=dres, tiles=tiles)
             with torch.no_grad():
-                out = propagate_ell_tiles(emb0, dres, tiles)
+                out = propagate(emb0, tg)
             err = float((out - ref).abs().max())
             scale = float(ref.abs().max())
             dname = str(dtype).replace("torch.", "")
             print(f"  [{dname}] max err vs ell: {err:.2e} (scale {scale:.2e}; "
                   f"{tiles.layout} layout)", flush=True)
             r = time_variant(f"tiles fill>={min_fill} {dname}",
-                             lambda e, t=tiles: propagate_ell_tiles(e, dres, t))
+                             lambda e, tg=tg: propagate(e, tg))
             for tag in r:
                 print(f"    -> {tag}: {baseline[tag][0] / r[tag][0]:.2f}x vs plain ELL",
                       flush=True)

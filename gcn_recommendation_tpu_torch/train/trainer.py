@@ -33,10 +33,11 @@ state lives (``_load_model_params``, ``_import_tree``, ``_export_tree``,
 ``params``), the graph (``_device_graph``), the forward (``_forward``),
 the batch (``batch_loss``), the gradient and loss reductions, and
 validation.
-The ELL graph carries the merge-skip views by default
-(``graph_fuse_layers``), so a step propagates through one
-``ops/spmm.py::propagate_sum_ell`` forward and one backward; above the
-gather knee the graph is source-chunked (``graph_chunking``).
+The ELL graph carries the merge-skip views, so a step propagates through
+one ``DeviceGraph.layer_sum`` forward and one backward; above the gather
+knee the graph is source-chunked (``ops/spmm.py::to_device_graph_auto``).
+A subclass that wants another layout (a per-layer twin, a forced chunk
+count) overrides ``_device_graph``.
 With ``Config.tile_spmm`` the propagation runs over the block-sparse tile
 partition (``ops/block_spmm.py``, the ``csrc/tile_spmm.cu`` kernel three
 times forward and three times backward per step at 3 layers).
@@ -66,9 +67,10 @@ from gcn_recommendation_tpu_torch.data.sampler import (
 )
 from gcn_recommendation_tpu_torch.models.lightgcn import debug_diagnostics
 from gcn_recommendation_tpu_torch.ops.spmm import (
+    ChunkedDeviceGraph,
     num_chunks_for,
-    to_device_chunked_graph,
     to_device_graph,
+    to_device_graph_auto,
 )
 from gcn_recommendation_tpu_torch.train.evaluate import build_eval_batches, evaluate_batches
 from gcn_recommendation_tpu_torch.train.loss import bpr_loss_reg
@@ -78,14 +80,6 @@ from gcn_recommendation_tpu_torch.utils.profiling import span, trace
 
 
 class Trainer:
-    # The source-chunked layout above the gather knee
-    # (ops/spmm.py::num_chunks_for; the sharded trainers turn it off).
-    graph_chunking = True
-    # Merge-skip: the permuted views that let the model run all K layers
-    # through one propagate_sum_ell (the JAX package's single-device
-    # default).  False gives the per-layer propagate_ell path and saves
-    # the second copy of the hub matrix.
-    graph_fuse_layers = True
     # Above this many examples per epoch, negatives are drawn in-step so
     # the sampler's memory stays [batch]-sized (the JAX package's rule).
     epoch_presample_max_examples = 4_000_000
@@ -122,18 +116,14 @@ class Trainer:
 
     def _device_graph(self):
         """The device graph, in the JAX package's order: the source-chunked
-        layout above the gather knee (``graph_chunking``); else the tile
-        partition's TiledDeviceGraph when ``config.tile_spmm`` is set and
-        some tile qualifies (its residual unfused); else the ELL graph,
-        with the merge-skip views when ``graph_fuse_layers``."""
+        layout above the gather knee; else the tile partition's
+        TiledDeviceGraph when ``config.tile_spmm`` is set and some tile
+        qualifies (its residual unfused); else the ELL graph with the
+        merge-skip views.  ``to_device_graph_auto`` applies the knee rule."""
         g = self.model.padded_graph(self.bundle.graph)
         cdtype = getattr(torch, self.config.compute_dtype)
-        n_chunks = num_chunks_for(g.num_nodes, self.config.embedding_dim, cdtype)
-        if self.graph_chunking and n_chunks > 1:
-            print(f"Graph: source-chunked gathers ({n_chunks} chunks — "
-                  f"embedding block above the gather knee, see PERF.md)")
-            return to_device_chunked_graph(g, n_chunks, compute_dtype=cdtype, device=self.device)
-        if self.config.tile_spmm:
+        dim = self.config.embedding_dim
+        if self.config.tile_spmm and num_chunks_for(g.num_nodes, dim, cdtype) == 1:
             from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
             from gcn_recommendation_tpu_torch.ops.block_spmm import (
                 TiledDeviceGraph,
@@ -157,8 +147,12 @@ class Trainer:
                 )
             print("Graph: tile partition empty at min_fill="
                   f"{self.config.tile_min_fill}; using the ELL path")
-        return to_device_graph(g, compute_dtype=cdtype, device=self.device,
-                               fuse_layers=self.graph_fuse_layers)
+        graph = to_device_graph_auto(g, compute_dtype=cdtype, embedding_dim=dim,
+                                     device=self.device)
+        if isinstance(graph, ChunkedDeviceGraph):
+            print(f"Graph: source-chunked gathers ({graph.num_chunks} chunks — "
+                  f"embedding block above the gather knee, see PERF.md)")
+        return graph
 
     def _make_optimizer(self) -> torch.optim.Adam:
         return torch.optim.Adam(

@@ -3,17 +3,19 @@
 * ``build_chunked_ell`` equal to JAX's, array for array, at C in {2, 3, 5},
   and with more destination slices than rows (JAX
   ``tests/test_spmm.py::test_chunked_build_more_slices_than_rows``);
-* ``propagate_chunked`` at C = 3 within 1e-5 of JAX's and of the plain
-  ELL path (same products, other summation order), its gradient within
-  1e-5 of ``jax.grad``; bf16 storage with f32 accumulation within 2e-2 of
-  the scale (``tests/test_spmm.py:251``'s bound);
-* dispatch through ``propagate()``;
+* ``ChunkedDeviceGraph`` propagation at C = 3 within 1e-5 of JAX's
+  ``propagate_chunked`` and of the plain ELL path (same products, other
+  summation order), its gradient within 1e-5 of ``jax.grad``; bf16
+  storage with f32 accumulation within 2e-2 of the scale
+  (``tests/test_spmm.py:251``'s bound);
+* propagation through ``propagate()``, the layout's own product;
 * the knee rule: this card's constants (``ops/spmm.py``'s scan);
   ``GATHER_KNEE_ROWS = None`` gives one chunk; with the knee
   monkeypatched low ``num_chunks_for`` / ``to_device_graph_auto`` chunk
   (two chunks at most), and the ``Trainer`` then picks a
   ``ChunkedDeviceGraph`` and takes the same losses as the plain layout,
-  rtol 2e-5 (``tests/test_spmm.py:218``).
+  rtol 2e-5 (``tests/test_spmm.py:218``), while the gspmd trainer keeps
+  its ``ShardedGraph``.
 """
 
 import jax
@@ -34,7 +36,12 @@ from gcn_recommendation_tpu_torch.graph.build import (
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
-from test_torch_spmm import GRAPHS, _inputs, one_thread  # noqa: F401  (autouse: one thread)
+from test_torch_spmm import (  # noqa: F401  (one_thread: autouse, one thread)
+    GRAPHS,
+    _inputs,
+    one_thread,
+    world_of_one,
+)
 
 B = 128
 
@@ -92,9 +99,9 @@ def test_build_chunked_ell_more_slices_than_rows():
     _assert_same_layout(got, jbuild.build_chunked_ell(g, 4))
     assert [len(gi) for gi in got[1][0]] == [2, 2, 2, 0]  # the last slice is empty
     emb = np.random.default_rng(0).standard_normal((6, 8)).astype(np.float32)
-    plain = spmm.propagate(torch.from_numpy(emb), spmm.to_device_graph(g, device="cpu"), 6)
+    plain = spmm.propagate(torch.from_numpy(emb), spmm.to_device_graph(g, device="cpu"))
     chunked = spmm.propagate(torch.from_numpy(emb),
-                             spmm.to_device_chunked_graph(g, 4, device="cpu"), 6)
+                             spmm.to_device_chunked_graph(g, 4, device="cpu"))
     np.testing.assert_allclose(chunked.numpy(), plain.numpy(), rtol=1e-5, atol=1e-6)
 
 
@@ -105,10 +112,10 @@ def test_propagate_chunked_matches_jax_and_plain(graph):
     cj = jspmm.to_device_chunked_graph(g, 3)
     want = np.asarray(_jax_propagate(n)(jnp.asarray(emb), cj))
     cg = spmm.to_device_chunked_graph(g, 3, device="cpu")
-    assert isinstance(cg, spmm.ChunkedDeviceGraph) and len(cg.chunk_gather_idx) == 3
-    got = spmm.propagate(torch.from_numpy(emb), cg, n)  # dispatch on the layout
+    assert isinstance(cg, spmm.ChunkedDeviceGraph) and cg.num_chunks == 3
+    got = spmm.propagate(torch.from_numpy(emb), cg)  # the layout's own product
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
-    plain = spmm.propagate(torch.from_numpy(emb), spmm.to_device_graph(g, device="cpu"), n)
+    plain = spmm.propagate(torch.from_numpy(emb), spmm.to_device_graph(g, device="cpu"))
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), dense @ emb, rtol=0, atol=1e-5)
 
@@ -124,7 +131,7 @@ def test_propagate_chunked_gradient_matches_jax(graph):
         jnp.asarray(emb), cj)
     cg = spmm.to_device_chunked_graph(g, 3, device="cpu")
     x = torch.from_numpy(emb).requires_grad_(True)
-    (got,) = torch.autograd.grad((spmm.propagate(x, cg, n) * torch.from_numpy(w)).sum(), x)
+    (got,) = torch.autograd.grad((spmm.propagate(x, cg) * torch.from_numpy(w)).sum(), x)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
@@ -137,9 +144,7 @@ def test_propagate_chunked_bf16_f32_accumulation(graph):
     emb = np.random.default_rng(11).standard_normal((n, 16)).astype(np.float32)
     cg = spmm.to_device_chunked_graph(g, 4, compute_dtype=torch.bfloat16, device="cpu")
     assert cg.dense_mat.dtype == torch.bfloat16
-    out = spmm.propagate_chunked(
-        torch.from_numpy(emb).to(torch.bfloat16), cg.chunk_bucket_idx, cg.chunk_bucket_w,
-        cg.chunk_gather_idx, cg.dense_mat, cg.dense_gather_idx)
+    out = spmm.propagate(torch.from_numpy(emb).to(torch.bfloat16), cg)
     assert out.dtype == torch.bfloat16
     ref = dense @ emb
     assert np.abs(out.float().numpy() - ref).max() < 2e-2 * np.abs(ref).max()
@@ -190,16 +195,16 @@ def test_knee_rule_when_the_knee_is_lowered(graph, monkeypatch):
     assert isinstance(spmm.to_device_graph_auto(g, device="cpu"), spmm.DeviceGraph)
     # the knee is dim-aware: at d = 256 a row holds 4x the bytes
     wide = spmm.to_device_graph_auto(g, embedding_dim=256, device="cpu")
-    assert isinstance(wide, spmm.ChunkedDeviceGraph) and len(wide.chunk_gather_idx) == 2
+    assert isinstance(wide, spmm.ChunkedDeviceGraph) and wide.num_chunks == 2
     emb = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (g.num_nodes, 8)).astype(np.float32))
     np.testing.assert_allclose(
-        spmm.propagate(emb, wide, g.num_nodes).numpy(),
-        spmm.propagate(emb, spmm.to_device_graph(g, device="cpu"), g.num_nodes).numpy(),
+        spmm.propagate(emb, wide).numpy(),
+        spmm.propagate(emb, spmm.to_device_graph(g, device="cpu")).numpy(),
         rtol=0, atol=1e-5)
 
 
-def test_trainer_picks_chunked_above_the_knee(monkeypatch, tmp_path, capsys):
+def test_trainer_picks_chunked_above_the_knee(monkeypatch, tmp_path, capsys, request):
     b = synthetic_bundle(300, 200, 20, seed=0)
     cfg = Config(embedding_dim=8, n_layers=2, batch_size=B,
                  checkpoint_dir=str(tmp_path / "ck"), results_dir=str(tmp_path / "res"))
@@ -221,10 +226,13 @@ def test_trainer_picks_chunked_above_the_knee(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(spmm, "GATHER_KNEE_ROWS", b.graph.num_nodes // 3 // 8)
     chunked, l_chunked = run()
     assert isinstance(chunked.graph, spmm.ChunkedDeviceGraph)
-    assert len(chunked.graph.chunk_gather_idx) == spmm.MAX_GATHER_CHUNKS
+    assert chunked.graph.num_chunks == spmm.MAX_GATHER_CHUNKS
     assert "source-chunked gathers" in capsys.readouterr().out
     np.testing.assert_allclose(l_chunked, l_plain, rtol=2e-5)
-    # the sharded trainers never chunk
-    from gcn_recommendation_tpu_torch.parallel.spmd import ShardedTrainer
+    # the sharded trainers never chunk: under the same knee the gspmd one
+    # shards the per-layer ELL graph
+    from gcn_recommendation_tpu_torch.parallel.spmd import ShardedGraph, ShardedTrainer
 
-    assert ShardedTrainer.graph_chunking is False
+    mesh = request.getfixturevalue("world_of_one")
+    m = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, cfg, device="cpu")
+    assert isinstance(ShardedTrainer(cfg, m, b, mesh).graph, ShardedGraph)

@@ -18,7 +18,7 @@ from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.models import get_model
 from gcn_recommendation_tpu_torch.ops import block_spmm, quant, topk
-from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
@@ -215,9 +215,9 @@ def test_tile_gradient_matches_ell_on_card(card, bundle, layout, d):
     res, full = to_device_graph(part.residual, device=card), to_device_graph(g, device=card)
     tiles = block_spmm.to_device_tiles(part, device=card, layout=layout)
     x = torch.randn((g.num_nodes, d), device=card).requires_grad_(True)
-    (g_tile,) = torch.autograd.grad((block_spmm.propagate_ell_tiles(x, res, tiles) ** 2).sum(), x)
-    (g_ell,) = torch.autograd.grad((propagate_ell(
-        x, full.bucket_nbr_idx, full.bucket_nbr_w, full.gather_idx, full.dense_mat) ** 2).sum(), x)
+    tiled = block_spmm.TiledDeviceGraph(base=res, tiles=tiles)
+    (g_tile,) = torch.autograd.grad((propagate(x, tiled) ** 2).sum(), x)
+    (g_ell,) = torch.autograd.grad((propagate(x, full) ** 2).sum(), x)
     assert (g_tile - g_ell).abs().max().item() <= 1e-4
 
 
@@ -449,25 +449,18 @@ def test_world_of_one_sharded_retriever_on_card(card, bundle, quantize):
 # ------------------------------------------ merge-skip and chunked layouts
 
 
-def _fused_args(dg):
-    return (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.bucket_nbr_idx_perm, dg.gather_idx,
-            dg.dense_mat, dg.dense_mat_perm)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_propagation_matches_cpu_on_card(card, bundle, dtype):
-    """``propagate_sum_ell`` and its backward on the card against the same
-    call on the CPU: f32 within 1e-5 (other summation order), bf16 storage
-    within 2e-2 of the scale (the parts round to 8 mantissa bits)."""
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate_sum_ell
-
+    """``DeviceGraph.layer_sum`` and its backward on the card against the
+    same call on the CPU: f32 within 1e-5 (other summation order), bf16
+    storage within 2e-2 of the scale (the parts round to 8 mantissa bits)."""
     g = bundle.graph
     emb = torch.randn(g.num_nodes, 64, generator=torch.Generator().manual_seed(0))
     out = {}
     for dev in ("cpu", card):
         dg = to_device_graph(g, compute_dtype=dtype, device=dev)
         x = emb.to(device=dev, dtype=dtype).requires_grad_(True)
-        y = propagate_sum_ell(3, x, *_fused_args(dg))
+        y = dg.layer_sum(x, 3)
         (gx,) = torch.autograd.grad((y ** 2).sum(), x)
         out[str(dev)] = (y.detach().cpu(), gx.float().cpu())
     (y_c, g_c), (y_g, g_g) = out["cpu"], out[str(card)]
@@ -478,7 +471,7 @@ def test_fused_propagation_matches_cpu_on_card(card, bundle, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_chunked_propagation_matches_cpu_on_card(card, bundle, dtype):
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_chunked_graph
+    from gcn_recommendation_tpu_torch.ops.spmm import to_device_chunked_graph
 
     g = bundle.graph
     emb = torch.randn(g.num_nodes, 64, generator=torch.Generator().manual_seed(1))
@@ -486,7 +479,7 @@ def test_chunked_propagation_matches_cpu_on_card(card, bundle, dtype):
     for dev in ("cpu", card):
         cg = to_device_chunked_graph(g, 3, compute_dtype=dtype, device=dev)
         x = emb.to(device=dev, dtype=dtype).requires_grad_(True)
-        y = propagate(x, cg, g.num_nodes)
+        y = propagate(x, cg)
         (gx,) = torch.autograd.grad((y.float() ** 2).sum(), x)
         out[str(dev)] = (y.detach().float().cpu(), gx.float().cpu())
     (y_c, g_c), (y_g, g_g) = out["cpu"], out[str(card)]

@@ -243,12 +243,12 @@ def test_tiles_from_arrays_refuses_bad_layouts(layout):
 
 def test_tiles_without_a_node_map_refuse_the_graph_product(layout):
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
-    from gcn_recommendation_tpu_torch.ops.spmm import to_device_graph
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
 
     g = to_device_graph(synthetic_bundle(40, 30, 4, seed=0).graph, device="cpu")
     tiles = exp.device_tiles(layout, 1, torch.float32, "cpu")
     with pytest.raises(ValueError, match="no node map"):
-        block_spmm.propagate_ell_tiles(torch.zeros((74, D)), g, tiles)
+        propagate(torch.zeros((74, D)), block_spmm.TiledDeviceGraph(base=g, tiles=tiles))
 
 
 # ------------------------------------------------------------ the two layouts

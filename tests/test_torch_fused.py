@@ -2,7 +2,8 @@
 
 * the permuted views of ``to_device_graph(fuse_layers=True)`` equal to
   JAX's, built from the same host graph;
-* ``propagate_sum_ell`` at 2 and 3 layers: f32 within 1e-5 of JAX's (same
+* ``DeviceGraph.layer_sum`` at 2 and 3 layers: f32 within 1e-5 of JAX's
+  ``propagate_sum_ell`` (same
   products, other summation order), its gradient within 1e-5 of
   ``jax.grad``, bf16 storage within rtol 2e-2 of JAX's bf16 (inputs and
   parts tables rounded to 8 mantissa bits; the sums stay f32), f32 out;
@@ -10,9 +11,10 @@
   against JAX fused, within 2e-5 (JAX's own limit for fused against
   per-layer, ``tests/test_spmm.py::test_model_apply_fused_matches_per_layer``),
   and fused against the port's per-layer path, row-padded too;
-* which layout each caller builds: the default ``Trainer`` fuses, the
-  tile residual, ``Retriever``, ``ShardedTrainer`` and ``HaloTrainer`` do
-  not;
+* which graph kind each caller builds: the default ``Trainer`` a fused
+  ``DeviceGraph`` (a ``ChunkedDeviceGraph`` above the knee, tiles or not),
+  the tile residual, ``Retriever``, ``ShardedTrainer`` and ``HaloTrainer``
+  none with the views;
 * a port ``Trainer``, fused against per-layer, 3 steps with per-step
   losses within rtol 2e-5 (JAX's limit, ``tests/test_spmm.py:214``).
 """
@@ -35,7 +37,12 @@ from gcn_recommendation_tpu_torch.models.convert import params_from_jax
 from gcn_recommendation_tpu_torch.ops import spmm
 from gcn_recommendation_tpu_torch.ops.block_spmm import TiledDeviceGraph
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
-from test_torch_spmm import GRAPHS, _inputs, one_thread  # noqa: F401  (autouse: one thread)
+from test_torch_spmm import (  # noqa: F401  (one_thread: autouse, one thread)
+    GRAPHS,
+    _inputs,
+    one_thread,
+    world_of_one,
+)
 
 B = 128
 
@@ -90,13 +97,13 @@ def test_propagate_sum_ell_matches_jax(graph, layers):
     dj = jspmm.to_device_graph(g, fuse_layers=True)
     want = np.asarray(jspmm.propagate_sum_ell(layers, jnp.asarray(emb), *_sum_args(dj)))
     dg = spmm.to_device_graph(g, device="cpu")
-    got = spmm.propagate_sum_ell(layers, torch.from_numpy(emb), *_sum_args(dg))
+    got = dg.layer_sum(torch.from_numpy(emb), layers)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     # and the sum of per-layer propagations of the port
     x, acc = torch.from_numpy(emb), torch.zeros(g.num_nodes, 16)
     for _ in range(layers):
-        x = spmm.propagate(x, dg, g.num_nodes)
+        x = spmm.propagate(x, dg)
         acc = acc + x
     np.testing.assert_allclose(got.numpy(), acc.numpy(), rtol=0, atol=1e-5)
 
@@ -112,17 +119,9 @@ def test_propagate_sum_ell_gradient_matches_jax(graph, layers):
         jspmm.propagate_sum_ell(layers, e, *_sum_args(dj)) * w))(jnp.asarray(emb))
     dg = spmm.to_device_graph(g, device="cpu")
     x = torch.from_numpy(emb).requires_grad_(True)
-    out = spmm.propagate_sum_ell(layers, x, *_sum_args(dg))
+    out = dg.layer_sum(x, layers)
     (got,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), x)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
-
-
-def test_propagate_sum_ell_backward_is_the_forward_on_the_cotangent(graph):
-    dg = spmm.to_device_graph(graph, device="cpu")
-    gout = torch.randn(graph.num_nodes, 8, generator=torch.Generator().manual_seed(0))
-    x = torch.zeros_like(gout, requires_grad=True)
-    (gx,) = torch.autograd.grad(spmm.propagate_sum_ell(3, x, *_sum_args(dg)), x, gout)
-    assert torch.equal(gx, spmm.propagate_sum_ell(3, gout, *_sum_args(dg)))
 
 
 def test_propagate_sum_ell_bf16_matches_jax(graph):
@@ -133,7 +132,7 @@ def test_propagate_sum_ell_bf16_matches_jax(graph):
     assert want.dtype == jnp.float32
     dg = spmm.to_device_graph(g, compute_dtype=torch.bfloat16, device="cpu")
     x = torch.from_numpy(emb).to(torch.bfloat16).requires_grad_(True)
-    got = spmm.propagate_sum_ell(2, x, *_sum_args(dg))
+    got = dg.layer_sum(x, 2)
     assert got.dtype == torch.float32  # the f32 accumulator comes out
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
     # the backward hands the input's dtype back
@@ -215,19 +214,28 @@ def test_model_fused_matches_per_layer(bundle, name, row_multiple):
 
 
 def test_one_layer_and_coo_take_the_per_layer_path(bundle):
-    """Fusion needs 2 layers or more and ``path='ell'``; otherwise the
-    views are ignored."""
+    """Fusion needs 2 layers or more and a graph with the views; otherwise
+    the layer mean runs layer by layer: the views are ignored at 1 layer,
+    and the COO oracle graph, which has none, runs the running f32 sum."""
     b = bundle
-    dg = spmm.to_device_graph(b.graph, include_coo=True, device="cpu")
-    for layers, path in ((1, "ell"), (3, "coo")):
-        m, _ = _models(bundle, "LightGCN", n_layers=layers)
-        m.init(torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            got = m(dg, path=path)
-            want = m(spmm.to_device_graph(b.graph, include_coo=True, device="cpu",
-                                          fuse_layers=False), path=path)
-        for a, w in zip(got, want):
-            assert torch.equal(a, w)
+    m, _ = _models(bundle, "LightGCN", n_layers=1)
+    m.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = m(spmm.to_device_graph(b.graph, device="cpu"))
+        want = m(spmm.to_device_graph(b.graph, device="cpu", fuse_layers=False))
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    m, _ = _models(bundle, "LightGCN", n_layers=3)
+    m.init(torch.Generator().manual_seed(0))
+    coo = spmm.to_device_coo_graph(b.graph, device="cpu")
+    with torch.no_grad():
+        got = torch.cat(m(coo)[:3])
+        ego = torch.cat(m._initial_tables())
+        acc, x = ego.float(), ego
+        for _ in range(3):
+            x = spmm.propagate_coo(x, coo.src, coo.dst, coo.weight, coo.num_nodes)
+            acc = acc + x.float()
+    assert torch.equal(got, acc / 4)
 
 
 # ------------------------------------------------- which caller builds what
@@ -247,18 +255,37 @@ def _model(bundle, cfg):
     return m
 
 
-def test_default_trainer_fuses_and_tile_residual_does_not(bundle, tmp_path, capsys):
-    assert Trainer.graph_fuse_layers is True and Trainer.graph_chunking is True
+class PerLayer(Trainer):
+    """The default trainer's per-layer twin: the ELL graph without the
+    merge-skip views."""
+
+    def _device_graph(self):
+        return spmm.to_device_graph(self.model.padded_graph(self.bundle.graph),
+                                    device=self.device, fuse_layers=False)
+
+
+def test_default_trainer_fuses_and_tile_residual_does_not(bundle, tmp_path, capsys,
+                                                          monkeypatch):
+    """The graph kind each single-device trainer builds, in the JAX
+    package's order: chunks above the knee (tiles asked for or not), then
+    the tile partition, then the fused ELL graph."""
     tr = Trainer(_cfg(tmp_path), _model(bundle, _cfg(tmp_path)), bundle)
     assert isinstance(tr.graph, spmm.DeviceGraph) and tr.graph.fused
     cfg = _cfg(tmp_path, tile_spmm=True, tile_min_fill=32)
     tiles = Trainer(cfg, _model(bundle, cfg), bundle)
     assert isinstance(tiles.graph, TiledDeviceGraph) and not tiles.graph.base.fused
-
-    class PerLayer(Trainer):
-        graph_fuse_layers = False
-
     assert not PerLayer(_cfg(tmp_path), _model(bundle, _cfg(tmp_path)), bundle).graph.fused
+    assert "source-chunked" not in capsys.readouterr().out
+    # a knee of half the bundle's d = 16 rows (a quarter of a d = 64 row's
+    # bytes): two chunks, whatever tile_spmm says
+    monkeypatch.setattr(spmm, "GATHER_KNEE_ROWS", bundle.graph.num_nodes // 8)
+    for c in (_cfg(tmp_path), cfg):
+        chunked = Trainer(c, _model(bundle, c), bundle)
+        assert isinstance(chunked.graph, spmm.ChunkedDeviceGraph)
+        assert chunked.graph.num_chunks == 2
+        assert capsys.readouterr().out == (
+            "Graph: source-chunked gathers (2 chunks — embedding block above the gather "
+            "knee, see PERF.md)\n")
 
 
 def test_retriever_builds_no_views(bundle, monkeypatch):
@@ -275,21 +302,9 @@ def test_retriever_builds_no_views(bundle, monkeypatch):
     assert not built[0].fused
 
 
-@pytest.fixture
-def world_of_one(monkeypatch):
-    from gcn_recommendation_tpu_torch.core import distributed
-    from gcn_recommendation_tpu_torch.core.mesh import MeshSpec, create_mesh
-
-    for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "LOCAL_WORLD_SIZE"):
-        monkeypatch.delenv(v, raising=False)
-    distributed.initialize("cpu", mesh_spec=MeshSpec(1, 1))
-    try:
-        yield create_mesh(MeshSpec(1, 1))
-    finally:
-        distributed.shutdown()
-
-
 def test_sharded_trainers_build_no_views(bundle, tmp_path, monkeypatch, world_of_one):
+    """Each sharded trainer builds its own kind, per-layer and unchunked
+    even with a knee below the bundle's node count."""
     from gcn_recommendation_tpu_torch.parallel import halo, spmd
 
     built = []
@@ -299,11 +314,12 @@ def test_sharded_trainers_build_no_views(bundle, tmp_path, monkeypatch, world_of
         return built[-1]
 
     monkeypatch.setattr(spmd, "to_device_graph", record)
-    for cls in (spmd.ShardedTrainer, halo.HaloTrainer):
-        assert cls.graph_fuse_layers is False and cls.graph_chunking is False
+    monkeypatch.setattr(spmm, "GATHER_KNEE_ROWS", bundle.graph.num_nodes // 8)
+    for cls, kind in ((spmd.ShardedTrainer, spmd.ShardedGraph),
+                      (halo.HaloTrainer, halo.ShardedEllArrays)):
         cfg = _cfg(tmp_path)
         tr = cls(cfg, _model(bundle, cfg), bundle, world_of_one)
-        assert not isinstance(tr.graph, spmm.DeviceGraph)  # a sharded layout
+        assert isinstance(tr.graph, kind)  # a sharded layout
     # the gspmd schedule shards a per-layer graph; halo builds its own
     assert len(built) == 1 and not built[0].fused
 
@@ -312,9 +328,6 @@ def test_sharded_trainers_build_no_views(bundle, tmp_path, monkeypatch, world_of
 
 
 def test_trainer_fused_matches_per_layer(bundle, tmp_path):
-    class PerLayer(Trainer):
-        graph_fuse_layers = False
-
     rng = np.random.default_rng(0)
     rows = rng.integers(0, len(bundle.train), (3, B))
     users = torch.from_numpy(bundle.train.user_idx[rows].astype(np.int64))

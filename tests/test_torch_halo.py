@@ -299,13 +299,12 @@ def test_apply_with_propagators_match_forward_and_jax(data):
     pb, jb = data["pb"], data["jb"]
     model = drivers.make_trainer(pb, CFG, params=data["params"], device="cpu").model
     dg = spmm.to_device_graph(pb.graph, device="cpu")
-    graph_args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
     n, layers = pb.graph.num_nodes, CFG["n_layers"]
 
     def prop(ego):  # the layer mean of the first n rows; the pad rows pass through
         acc = e = ego[:n]
         for _ in range(layers):
-            e = spmm.propagate_ell(e, *graph_args)
+            e = spmm.propagate(e, dg)
             acc = acc + e
         return torch.cat([acc / (layers + 1), ego[n:]])
 

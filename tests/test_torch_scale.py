@@ -155,7 +155,7 @@ def port_runs(bundles, jax_run, tmp_path_factory):
             tr = Trainer(cfg, m, b)
         kind = type(tr.graph).__name__
         assert kind == ("TiledDeviceGraph" if tile else "DeviceGraph")
-        assert tile or tr.graph.fused  # the default ELL trainer runs propagate_sum_ell
+        assert tile or tr.graph.fused  # the default ELL trainer runs layer_sum
         losses = [float(tr.train_step(*(torch.from_numpy(a.astype(np.int64)) for a in batch)))
                   for batch in _batches(b)]
         out[tile] = np.asarray(losses)

@@ -106,14 +106,14 @@ def test_spmm_variants_bucketed_equals_flat_and_the_jax_formula():
     assert f"graph: nodes={g.num_nodes} nnz={g.nnz} buckets={len(g.buckets)}" in text
     assert [(r["form"], r["tag"]) for r in res["rows"]] == [
         ("bucketed", "fwd"), ("bucketed", "fwd+bwd"), ("flat", "fwd"), ("flat", "fwd+bwd")]
-    assert "_PropagateEll" in text and "index_add_" in text
+    assert "_SymmetricProduct" in text and "index_add_" in text
 
 
 def test_spmm_variants_flat_backward_equals_the_symmetric_one():
     """The two forms' gradients of ``sum(A e)^2`` agree: autograd's
-    ``index_add_`` through the flat gathers against ``_PropagateEll``."""
+    ``index_add_`` through the flat gathers against the symmetric one."""
     from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
-    from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+    from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
 
     b = synthetic_bundle(num_users=300, num_items=200, num_brands=12, mean_degree=28.0,
                          core=8, seed=42)
@@ -122,8 +122,7 @@ def test_spmm_variants_flat_backward_equals_the_symmetric_one():
     e0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (b.graph.num_nodes, 8)).astype(np.float32))
     grads = []
-    for fn in (lambda e: propagate_ell(e, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx,
-                                       dg.dense_mat),
+    for fn in (lambda e: propagate(e, dg),
                lambda e: exp_spmm_variants.matvec_flat(e, dg, flat)):
         e = e0.clone().requires_grad_(True)
         grads.append(torch.autograd.grad((fn(e) ** 2).sum(), e)[0])

@@ -34,7 +34,7 @@ from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.build import EllBucket, Graph
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.ops import block_spmm
-from gcn_recommendation_tpu_torch.ops.spmm import propagate_ell, to_device_graph
+from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
 from helpers import dense_from_graph
 from test_torch_spmm import one_thread  # noqa: F401  (autouse: one thread)
 
@@ -144,12 +144,17 @@ def test_tile_matvec_bf16_matches_pallas_interpret(heavy):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
 
 
+def _propagate_tiles(emb, residual, tiles):
+    """``A_norm @ emb`` over the partition's ``TiledDeviceGraph``."""
+    return propagate(emb, block_spmm.TiledDeviceGraph(base=residual, tiles=tiles))
+
+
 def test_propagate_ell_tiles_matches_jax(heavy):
     gj, g, pj, p = heavy
     e = _emb(g.num_nodes, 32, seed=0)
     ref = jbs.propagate_ell_tiles(
         jnp.asarray(e), jax_device_graph(pj.residual), _jax_tiles(pj))
-    out = block_spmm.propagate_ell_tiles(
+    out = _propagate_tiles(
         torch.from_numpy(e), to_device_graph(p.residual, device="cpu"), _port_tiles(p))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
 
@@ -158,8 +163,8 @@ def test_propagate_ell_tiles_equals_plain_ell(heavy):
     _, g, _, p = heavy
     e = torch.from_numpy(_emb(g.num_nodes, 32, seed=1))
     dg = to_device_graph(g, device="cpu")
-    ref = propagate_ell(e, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
-    out = block_spmm.propagate_ell_tiles(
+    ref = propagate(e, dg)
+    out = _propagate_tiles(
         e, to_device_graph(p.residual, device="cpu"), _port_tiles(p))
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=1e-4)
 
@@ -171,7 +176,7 @@ def test_propagate_ell_tiles_gradient_matches_jax(heavy):
     g_jax = jax.grad(
         lambda x: jnp.sum(jbs.propagate_ell_tiles(x, dres, tiles) ** 2))(jnp.asarray(e))
     x = torch.from_numpy(e).requires_grad_(True)
-    out = block_spmm.propagate_ell_tiles(
+    out = _propagate_tiles(
         x, to_device_graph(p.residual, device="cpu"), _port_tiles(p))
     (g_port,) = torch.autograd.grad((out**2).sum(), x)
     np.testing.assert_allclose(g_port.numpy(), np.asarray(g_jax), rtol=0, atol=1e-3)
@@ -181,8 +186,8 @@ def test_bf16_tiles_close_to_f32(heavy):
     _, g, _, p = heavy
     e = torch.from_numpy(_emb(g.num_nodes, 32, seed=2))
     res = to_device_graph(p.residual, device="cpu")
-    ref = block_spmm.propagate_ell_tiles(e, res, _port_tiles(p))
-    out = block_spmm.propagate_ell_tiles(e, res, _port_tiles(p, torch.bfloat16))
+    ref = _propagate_tiles(e, res, _port_tiles(p))
+    out = _propagate_tiles(e, res, _port_tiles(p, torch.bfloat16))
     err = float((out - ref).abs().max())
     assert 0 < err < 2e-2 * float(ref.abs().max())
 
@@ -360,7 +365,7 @@ def test_propagate_ell_tiles_compressed_matches_jax(heavy):
     e = _emb(g.num_nodes, 32, seed=0)
     ref = jbs.propagate_ell_tiles(
         jnp.asarray(e), jax_device_graph(pj.residual), _jax_tiles(pj))
-    out = block_spmm.propagate_ell_tiles(
+    out = _propagate_tiles(
         torch.from_numpy(e), to_device_graph(p.residual, device="cpu"),
         _port_tiles(p, layout="compressed"))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
@@ -373,7 +378,7 @@ def test_propagate_ell_tiles_compressed_gradient_matches_jax(heavy):
     g_jax = jax.grad(
         lambda x: jnp.sum(jbs.propagate_ell_tiles(x, dres, tiles) ** 2))(jnp.asarray(e))
     x = torch.from_numpy(e).requires_grad_(True)
-    out = block_spmm.propagate_ell_tiles(
+    out = _propagate_tiles(
         x, to_device_graph(p.residual, device="cpu"), _port_tiles(p, layout="compressed"))
     (g_port,) = torch.autograd.grad((out**2).sum(), x)
     np.testing.assert_allclose(g_port.numpy(), np.asarray(g_jax), rtol=0, atol=1e-3)

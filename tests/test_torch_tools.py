@@ -48,7 +48,11 @@ from gcn_recommendation_tpu_torch.data import native_ext as port_native_ext
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops.spmm import propagate_coo, propagate_ell, to_device_graph
+from gcn_recommendation_tpu_torch.ops.spmm import (
+    propagate,
+    to_device_coo_graph,
+    to_device_graph,
+)
 from gcn_recommendation_tpu_torch.tools import (
     calibrate_regimes,
     card_checks,
@@ -209,8 +213,12 @@ def test_exp_step_profile_first_loss_is_the_trainer_s(step_profile, row, fuse):
     cfg = Config(embedding_dim=64, n_layers=3, batch_size=2048)
     model = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, cfg, device="cpu")
     model.load_params(res["params0"])
-    trainer_cls = type("T", (Trainer,), {"graph_fuse_layers": fuse})
-    tr = trainer_cls(cfg, model, b)
+    class PerLayer(Trainer):  # the default Trainer's twin without the merge-skip views
+        def _device_graph(self):
+            return to_device_graph(self.bundle.graph, device=self.device, fuse_layers=False)
+
+    tr = (Trainer if fuse else PerLayer)(cfg, model, b)
+    assert tr.graph.fused == fuse
     users, pos, neg = (torch.from_numpy(np.asarray(a, np.int64)) for a in res["first_batch"])
     loss = float(tr.train_step(users, pos, neg))
     np.testing.assert_allclose(res["rows"][row]["first_loss"], loss, rtol=1e-6)
@@ -253,11 +261,11 @@ def test_exp_hub_threshold_hubs_and_rows_are_jax_s_and_forward_is_coo_s():
         assert row["hubs"] == len(jg.dense_node_ids)
         assert row["padded_rows"] == sum(bk.nbr_idx.size for bk in jg.buckets)
         g = exp_hub_threshold.build_graph(pb, t)
-        dg = to_device_graph(g, include_coo=True, fuse_layers=False, device="cpu")
+        dg = to_device_graph(g, fuse_layers=False, device="cpu")
         e = torch.from_numpy(np.random.default_rng(t).standard_normal((g.num_nodes, 16))
                              .astype(np.float32))
-        ell = propagate_ell(e, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
-        coo = propagate_coo(e, dg.src, dg.dst, dg.weight, g.num_nodes)
+        ell = propagate(e, dg)
+        coo = propagate(e, to_device_coo_graph(g, device="cpu"))
         np.testing.assert_allclose(ell.numpy(), coo.numpy(), rtol=0, atol=1e-5)
     assert res["rows"][1]["hubs"] > res["rows"][0]["hubs"]
 

@@ -1,7 +1,7 @@
 """The port's training slice against the JAX package, on the CPU.
 
-* ``propagate_ell``'s backward (the forward on the cotangent) against
-  ``jax.grad`` to 1e-5;
+* the per-layer ELL graph's backward (the forward on the cotangent)
+  against ``jax.grad`` of ``propagate_ell`` to 1e-5;
 * ``bpr_loss_reg`` with and without the brand term to rtol 1e-6;
 * one training step from the same params, users, positives and
   negatives, tile path off and on: loss to rtol 1e-5, gradients within
@@ -72,19 +72,9 @@ def test_propagate_ell_gradient_matches_jax():
         jnp.asarray(e))
     dg = spmm.to_device_graph(b.graph, device="cpu")
     x = torch.from_numpy(e).requires_grad_(True)
-    out = spmm.propagate_ell(x, dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
+    out = spmm.propagate(x, dg)
     (g_port,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), x)
     np.testing.assert_allclose(g_port.numpy(), np.asarray(g_jax), rtol=0, atol=1e-5)
-
-
-def test_propagate_ell_backward_is_the_forward_on_the_cotangent():
-    b = synthetic_bundle(300, 200, 20, seed=0)
-    dg = spmm.to_device_graph(b.graph, device="cpu")
-    args = (dg.bucket_nbr_idx, dg.bucket_nbr_w, dg.gather_idx, dg.dense_mat)
-    gout = torch.randn(b.graph.num_nodes, 8, generator=torch.Generator().manual_seed(0))
-    x = torch.zeros_like(gout, requires_grad=True)
-    (gx,) = torch.autograd.grad(spmm.propagate_ell(x, *args), x, gout)
-    assert torch.equal(gx, spmm.propagate_ell(gout, *args))
 
 
 # ---------------------------------------------------------------------- loss
