@@ -256,9 +256,10 @@ fails:
    the card waits on the host;
 19. the hit histogram kernel (the second kernel of ``csrc/masked_topk.cu``,
    ``hit_histogram:`` line): a ``Trainer`` on the phase-4 bundle (the books
-   shapes; LightGCN d 64 x 3, seeded weights) validates once, then once more
-   under ``torch.profiler`` (CUDA activity), which must launch the kernel
-   once per eval batch; the line gives that pass's device operations in
+   shapes; LightGCN d 64 x 3, seeded weights) validates once, then twice
+   more under ``torch.profiler`` (CUDA activity; the first of the two its
+   warm-up), and the recorded pass must launch the kernel once per eval
+   batch; the line gives that pass's device operations in
    all and by name.  Each eval batch's top-k, and random top-k blocks with pad
    rows and misses at [1024, 20], [4096, 20] and [4096, 1024], reduced by
    the kernel, must equal the plain version count for count.  Times at
@@ -267,7 +268,19 @@ fails:
    valid flags read once, the counts written once), the plain version
    (``plain_ms``: one ``bincount`` and its operands) and the eager lines
    it replaced (``topk_hit_metrics_ms``: ``topk_hit_metrics``, the stack
-   and the sum).
+   and the sum);
+20. K1, the ELL bucket kernel (``csrc/ell_spmm.cu``, ``ell books:`` and
+   ``ell north_star:`` lines): the default ``Trainer`` on the phase-4
+   bundle (merge-skip, d 64 x 3) and on phase 13's north-star bundle
+   (source-chunked, C = 2, d 256 x 4) takes a training step, which must
+   launch the kernel once a parts table (2 x 3 and 2 x 4 x 4) with
+   ``spmm.kernel_slots`` the slots of those tables, and an evaluation
+   forward (half as many).  Every parts table over a random source table:
+   bit-equal to the plain ``_bucket_reduce`` at widths up to 4, wider within
+   the bound of two float32 summation orders, the zeros row zero; its times
+   (graph replay ``ms``, eager ``call_ms``) beside the bounds (inputs and
+   output once, and the gathered rows, at 3.35 TB/s), the plain version and,
+   as ``library_ms``, ``torch.sparse.mm`` of a CSR of the same entries.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
@@ -646,7 +659,7 @@ def phase_hit_histogram(dev, bundle):
     """The hit histogram kernel on the validation path: its launches and
     a validation pass's device operations (``torch.profiler``), equality
     with the plain version, times."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     t0 = time.perf_counter()
     record = {
@@ -662,10 +675,16 @@ def phase_hit_histogram(dev, bundle):
     tr.validate()
     torch.cuda.synchronize()
     batches = tr._eval_batches
-    before = topk.hit_histogram.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        recall, ndcg = tr.validate()
-        torch.cuda.synchronize()
+    # the pass it records follows one pass under the profiler's warm-up: late
+    # in this long process its device records can start a few ms into a pass,
+    # and the forward (1.7 ms since K1) no longer covers that gap
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            before = topk.hit_histogram.launches
+            recall, ndcg = tr.validate()
+            torch.cuda.synchronize()
+            prof.step()
     record["launches_validate"] = topk.hit_histogram.launches - before
     check(record["launches_validate"] == len(batches),
           f"validate launches the hit histogram kernel once per eval batch ({len(batches)})")
@@ -2764,17 +2783,17 @@ def _scale_north_star(dev):
     print("scale_north_star: " + json.dumps(meas), flush=True)
     del served, model, params
     torch.cuda.empty_cache()
-    return meas, k2
+    return meas, k2, nb
 
 
 def phase_scale(dev, bundle):
     """Phase 13: the scaled configuration (dim 256, 4 layers).  Returns
-    K3's record at d = 256 and the launches of each main path (K2's
-    d = 256 shape is timed in phase 3)."""
+    K3's record at d = 256, the launches of each main path (K2's d = 256
+    shape is timed in phase 3) and the north-star bundle (phase 20's)."""
     t_phase = time.perf_counter()
     tile_rec = _scale_tile_kernels(dev, bundle)
     _, k3, k2_books = _scale_books(dev, bundle)
-    _, k2_north = _scale_north_star(dev)
+    _, k2_north, north = _scale_north_star(dev)
     print(f"scale: phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     tile_rec["launches_scale_path"] = k3
     quant_launches = {
@@ -2783,7 +2802,7 @@ def phase_scale(dev, bundle):
         "launches_scale_north_star_stochastic": k2_north["quantize_rows_int8"],
         "launches_scale_north_star_nearest": k2_north["quantize_users_int8"],
     }
-    return tile_rec, quant_launches
+    return tile_rec, quant_launches, north
 
 
 class _Tee(io.TextIOBase):
@@ -3706,6 +3725,153 @@ def phase_review_dumps():
             "tile_matvec": rec["k3"]}
 
 
+def _ell_bound_ms(table, n: int, d: int, x_bytes: int):
+    """Least times of one K1 launch at the HBM rate: the inputs and output
+    once (an int64 id and a weight a slot, the [n, d] source table, the
+    [rows, d] float32 output), and the gathered rows (one source row a
+    slot, padding included), which the kernel reads whatever the cache."""
+    w_bytes = torch.empty((), dtype=table.w_dtype).element_size()
+    once = table.slots * (8 + w_bytes) + n * d * x_bytes + table.rows * d * 4
+    gathered = table.slots * d * x_bytes
+    return once / HBM_BYTES_PER_S * 1e3, gathered / HBM_BYTES_PER_S * 1e3
+
+
+def _ell_csr(table, n: int):
+    """The table's stored entries (padding slots left out) as a CSR
+    [bucket rows, n] float32 matrix, for ``torch.sparse.mm``."""
+    rows, cols, vals = [], [], []
+    off = 0
+    for i, w in zip(table.idx, table.w):
+        keep = w != 0
+        r = torch.arange(off, off + i.shape[0], device=i.device)[:, None].expand_as(i)
+        rows.append(r[keep])
+        cols.append(i[keep])
+        vals.append(w[keep].float())
+        off += i.shape[0]
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (off, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _check_ell_table(x, table, what: str) -> None:
+    """K1 against the plain version, bucket by bucket: bit-equal at widths
+    up to ``COLSUM_MAX_WIDTH`` in float32, wider within what two float32
+    summation orders may differ by (2 (width - 1) units of 2^-24 of the
+    terms' magnitudes); the zeros row zero."""
+    out = spmm.ell_spmm(x, table, torch.float32)
+    row, worst = 0, 0.0
+    for i, w in zip(table.idx, table.w):
+        got = out[row:row + i.shape[0]]
+        row += i.shape[0]
+        plain = spmm._bucket_reduce(x, i, w)
+        width = i.shape[1]
+        if width <= spmm.COLSUM_MAX_WIDTH and x.dtype == torch.float32:
+            check(torch.equal(got, plain), f"K1 bit-equal to plain: {what}, width {width}")
+            continue
+        mags = spmm._bucket_reduce(x.abs(), i, w.abs())
+        gap = (got - plain).abs() / (2.0 * max(width - 1, 1) * 2.0**-24 * mags).clamp_min(1e-30)
+        worst = max(worst, gap.max().item())
+    check(worst <= 1.0, f"K1 within the summation-order bound of plain: {what} "
+                        f"(worst gap {worst:.3f} of the bound)")
+    check(bool((out[-1] == 0).all()), f"K1 writes the zeros row: {what}")
+
+
+def _ell_tables(graph, n: int):
+    """The parts tables one forward of ``graph`` (over ``n`` nodes) launches
+    K1 on, each with the source rows it reads as (first, count): a
+    merge-skip graph's node-space table (the nodes) and composed table (the
+    previous parts table), or a chunked graph's cells (their chunk's rows)."""
+    if isinstance(graph, spmm.ChunkedDeviceGraph):
+        chunk_rows = -(-n // graph.num_chunks)
+        return [(t, ci * chunk_rows, min(chunk_rows, n - ci * chunk_rows))
+                for ci, chunk in enumerate(graph.cell_buckets) for t in chunk]
+    return [(graph.buckets, 0, n), (graph.buckets_perm, 0, graph.buckets.rows)]
+
+
+def phase_ell(dev, bundle, north):
+    """Phase 20: K1 (``csrc/ell_spmm.cu``) on the default ``Trainer``'s own
+    path over the books bundle (merge-skip ``DeviceGraph``, d 64 x 3) and
+    the north-star bundle (source-chunked, C = 2, d 256 x 4): launches and
+    ``spmm.kernel_slots`` of one training step and one evaluation forward,
+    every parts table against the plain version, and its times beside the
+    bounds, the plain version and ``torch.sparse.mm``."""
+    from gcn_recommendation_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    record = {"name": "ell_spmm", "route": "cuda",
+              "source": "gcn_recommendation_tpu_torch/csrc/ell_spmm.cu",
+              "replaces": None,  # XLA's gather + reduce: _bucket_reduce in the JAX package
+              "cases": []}
+    for what, b, dim, layers in (("books", bundle, 64, 3), ("north_star", north, 256, 4)):
+        cfg = Config(embedding_dim=dim, n_layers=layers, batch_size=2048)
+        model = get_model("LightGCN")(b.num_users, b.num_items, b.num_brands, cfg, device=dev)
+        model.init(torch.Generator().manual_seed(0))
+        tr = Trainer(cfg, model, b)
+        graph = tr.graph
+        chunked = isinstance(graph, spmm.ChunkedDeviceGraph)
+        check(chunked == (what == "north_star") and (chunked or graph.fused),
+              f"K1 {what}: the Trainer's {'chunked' if chunked else 'merge-skip'} layout")
+        n = b.graph.num_nodes if chunked else int(graph.gather_idx.shape[0])
+        tables = _ell_tables(graph, n)
+        if chunked:  # a forward: every cell each layer
+            per_fwd = [t for t, _, _ in tables] * layers
+        else:  # one node-space table, then K - 1 composed ones
+            per_fwd = [graph.buckets] + [graph.buckets_perm] * (layers - 1)
+        rng = np.random.default_rng(0)
+        rows = torch.from_numpy(rng.integers(0, len(b.train), 2048)).to(dev)
+        neg = torch.from_numpy(rng.integers(0, b.num_items, 2048)).to(dev)
+        u, i = tr.train_users[rows], tr.train_items[rows]
+        tr.train_step(u, i, neg)
+        before = spmm.ell_spmm.launches
+        with profiling.collect() as rec:
+            tr.train_step(u, i, neg)
+            torch.cuda.synchronize()
+        step = spmm.ell_spmm.launches - before
+        slots = rec.counters[spmm.KERNEL_SLOTS]
+        want = 2 * sum(t.slots for t in per_fwd)
+        check(step == 2 * len(per_fwd) and slots == want,
+              f"K1 {what}: a training step launches it once a parts table ({step}), "
+              f"{slots:,} slots reduced")
+        restore = rec.counters[spmm.GATHERED_ROWS] - slots
+        before = spmm.ell_spmm.launches
+        with torch.no_grad():
+            tr._forward_eval()
+        fwd = spmm.ell_spmm.launches - before
+        check(fwd == len(per_fwd), f"K1 {what}: an evaluation forward launches it {fwd} times")
+        x = torch.randn((max(n, graph.buckets.rows if not chunked else 0), dim),
+                        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        case = {"what": what, "d": dim, "layers": layers, "step_launches": step,
+                "forward_launches": fwd, "step_kernel_slots": slots,
+                "step_restore_rows": restore, "tables": []}
+        for t, first, count in tables:
+            src = x.narrow(0, first, count)
+            label = f"{what} table {len(case['tables'])} ({t.slots:,} slots)"
+            _check_ell_table(src, t, label)
+            if not t.slots:  # an empty cell: its zeros row alone
+                continue
+            bound_ms, gathered_ms = _ell_bound_ms(t, src.shape[0], dim, 4)
+            ms = graph_ms(lambda: spmm.ell_spmm(src, t))
+            csr = _ell_csr(t, src.shape[0])
+            case["tables"].append({
+                "slots": t.slots, "rows": t.rows, "entries": int(t.n_entries),
+                "widest": max((int(j.shape[1]) for j in t.idx), default=0),
+                "ms": ms, "call_ms": cuda_ms(lambda: spmm.ell_spmm(src, t)),
+                "plain_ms": cuda_ms(lambda: torch.cat([spmm._bucket_reduce(src, j, w)
+                                                       for j, w in zip(t.idx, t.w)]), reps=3),
+                "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, src), reps=5),
+                "bound_ms": bound_ms, "gathered_bound_ms": gathered_ms,
+                "share_of_bound": bound_ms / ms, "gathered_tb_per_s":
+                    t.slots * dim * 4 / ms / 1e9,
+            })
+            del csr
+        record["cases"].append(case)
+        print(f"ell {what}: " + json.dumps(case), flush=True)
+        del tr, model, graph, x
+        torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only",
@@ -3735,13 +3901,15 @@ def main() -> int:
     daemon_launches = phase_daemon(dev, bundle)
     mesh_launches = phase_mesh(dev, bundle, train_ref["per_layer_losses"])
     layout_launches = phase_layouts(dev, bundle, train_ref)
-    scale_tile_record, scale_quant_launches = phase_scale(dev, bundle)
+    scale_tile_record, scale_quant_launches, north = phase_scale(dev, bundle)
     cli_launches = phase_cli_dataset()
     tools_launches = phase_tools(dev)
     phase_studies(dev)
     review_launches = phase_review_dumps()
     topk_record = phase_topk(dev, bundle)
     hist_record = phase_hit_histogram(dev, bundle)
+    ell_record = phase_ell(dev, bundle, north)
+    del north
 
     # launches of each main path, read right after it was driven: both modes of
     # the quantizer on the int8 daemon's path, then the earlier paths' counts
@@ -3774,7 +3942,7 @@ def main() -> int:
     print(f"total_seconds: {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [quant_record, tile_record, x1_record, x2_record,
-                                  topk_record, hist_record]}),
+                                  topk_record, hist_record, ell_record]}),
           flush=True)
     print(json.dumps({
         "ok": True,

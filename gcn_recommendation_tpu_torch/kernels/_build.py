@@ -82,6 +82,15 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "ell_spmm": {
+        # table, n_entries, n_blocks, x, x_bf16, w_bf16, n, d, out, out_bf16, stream
+        "ell_spmm_launch": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+    },
     "tile_gather_spmm": {
         "tile_gather_spmm_launch": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

@@ -9,8 +9,11 @@ LightGCN layer mean over any kind:
 * ``DeviceGraph`` — the degree-bucketed ELL graph: per bucket a gather,
   multiply and reduce over the padded neighbor axis, the hub rows as one
   dense matrix product, a zeros row for degree-0 nodes, and one gather
-  restoring node order.  These are ``index_select`` and ``torch.matmul``:
-  the JAX package leaves them to XLA, not to a Pallas kernel.  Built with
+  restoring node order.  The JAX package leaves these to XLA, not to a
+  Pallas kernel.  On a card every bucket of a parts table is one launch of
+  the port's own kernel, ``csrc/ell_spmm.cu`` (``ell_spmm``): the gathered
+  rows stay in registers; a CPU tensor takes the plain version,
+  ``_bucket_reduce`` per bucket.  Built with
   ``fuse_layers=True`` (the default) it also carries the permuted views of
   merge-skip, and ``layer_sum`` runs ``sum_{k=1..K} A_norm^k @ ego`` with
   one restore gather for all K layers: what the default ``Trainer`` and
@@ -29,13 +32,16 @@ oracle propagates through ``_SymmetricProduct``, whose backward is the same
 product applied to the cotangent, never autograd's ``index_add_``.
 
 Index arrays are converted to int64 once, when a graph is shipped:
-``index_select`` and ``index_add_`` take int64 indices.
+``index_select`` and ``index_add_`` take int64 indices, and the kernel
+reads them where they lie, through each parts table's descriptor
+(``BucketTable``, built with the graph).
 
 Spans (``utils/profiling.py``): ``spmm.forward`` / ``spmm.backward``
 around each propagation of ``_SymmetricProduct``, ``spmm.hub`` around
 each hub-row product, ``spmm.to_device`` around a graph's layout and
 upload; the counter ``spmm.gathered_rows`` counts the embedding rows a
-propagation gathers (ELL slots, padding included, and restore gathers).
+propagation gathers (ELL slots, padding included, and restore gathers),
+``spmm.kernel_slots`` the ELL slots the kernel reduced (0 on the CPU).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from gcn_recommendation_tpu_torch.utils import profiling
 from gcn_recommendation_tpu_torch.utils.profiling import span
 
 GATHERED_ROWS = "spmm.gathered_rows"
+KERNEL_SLOTS = "spmm.kernel_slots"
 
 
 class _SymmetricProduct(torch.autograd.Function):
@@ -141,27 +148,187 @@ def _bucket_reduce(emb: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> tor
     return (gathered * w[..., None]).sum(dim=1, dtype=torch.float32)
 
 
-def _hub_rows(dense_mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _hub_rows(dense_mat: torch.Tensor, x: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The hub rows ``dense_mat @ x`` in f32: one dense product replaces
     the power-law gather tail, with f32 accumulation as in the JAX
-    package's ``preferred_element_type`` (bf16 x bf16 is exact in f32)."""
+    package's ``preferred_element_type`` (bf16 x bf16 is exact in f32).
+    With ``out`` (rows of a parts table) they are written there, in its
+    dtype."""
     with span("spmm.hub"):
-        return torch.matmul(dense_mat.float(), x.to(dense_mat.dtype).float())
+        a, b = dense_mat.float(), x.to(dense_mat.dtype).float()
+        if out is None:
+            return torch.matmul(a, b)
+        if out.dtype == torch.float32:
+            return torch.matmul(a, b, out=out)
+        return out.copy_(torch.matmul(a, b))
 
 
-def _parts_matvec(x, bucket_idx, bucket_w, dense):
-    """One propagation in parts order, ``[nrows, d]``: the bucket rows,
-    the hub rows and one zeros row for degree-0 nodes, each part cast to
-    ``x``'s dtype, without the restore gather.  ``x`` is node-ordered
-    (with the node-space indices and hub matrix) or parts-ordered (with
-    the composed views of ``to_device_graph(fuse_layers=True)``)."""
-    if profiling.collecting():
-        profiling.count(GATHERED_ROWS, sum(i.numel() for i in bucket_idx))
-    parts = [_bucket_reduce(x, idx, w).to(x.dtype) for idx, w in zip(bucket_idx, bucket_w)]
-    if dense.shape[0]:
-        parts.append(_hub_rows(dense, x).to(x.dtype))
-    parts.append(x.new_zeros((1, x.shape[1])))
-    return torch.cat(parts, dim=0)
+# Rows at least this wide are split over the kernel's eight lane groups
+# (one row a block, eight contiguous slices added in slice order); a
+# narrower row takes one lane group, eight rows a block.  From 1024 on a
+# slice holds 128 slots or more; the north-star graph's widest rows
+# (16,384 slots) would otherwise hold one lane group for 2,048 rounds of
+# dependent gathers while the rest of the card has finished.
+SPLIT_MIN_WIDTH = 1024
+GROUPS_PER_BLOCK = 8  # csrc/ell_spmm.cu's kGroups
+
+
+def describe_buckets(widths, rows, zeros_row_at: Optional[int] = None
+                     ) -> Tuple[np.ndarray, int]:
+    """The descriptor of one parts table's buckets, in the order the kernel
+    issues them, and the blocks of the launch: ``[entries, 6]`` int64 rows
+    of (bucket, first block, first output row, rows, width, wide).  Bucket
+    b's output rows follow bucket b-1's; the entries go widest first (equal
+    widths in bucket order), a bucket without rows has none, and
+    ``zeros_row_at`` adds one row of zeros there (bucket -1, width 0) last.
+    ``wide`` entries take one block a row, the others ``GROUPS_PER_BLOCK``
+    rows a block."""
+    rows = [int(r) for r in rows]
+    starts = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int64) if rows else []
+    order = sorted((b for b in range(len(rows)) if rows[b]), key=lambda b: -int(widths[b]))
+    entries = [(b, int(starts[b]), rows[b], int(widths[b])) for b in order]
+    if zeros_row_at is not None:
+        entries.append((-1, int(zeros_row_at), 1, 0))
+    out = np.zeros((len(entries), 6), np.int64)
+    block = 0
+    for i, (b, row0, nb, width) in enumerate(entries):
+        wide = width >= SPLIT_MIN_WIDTH
+        out[i] = (b, block, row0, nb, width, wide)
+        block += nb if wide else -(-nb // GROUPS_PER_BLOCK)
+    return out, block
+
+
+class BucketTable:
+    """The ELL buckets of one parts table, laid out ``[bucket rows | hub
+    rows | zeros row]``, and their descriptor for one launch of
+    ``csrc/ell_spmm.cu``: built once, when a graph is shipped.  The
+    descriptor (``[entries, 8]`` int64 on the buckets' device: first block,
+    first output row, rows, width, the ids' and the weights' addresses,
+    wide, 0) points at the ids and weights where they lie; the table holds
+    those tensors, so their memory outlives every launch."""
+
+    def __init__(self, idx, w, device: torch.device, hub_rows: int = 0,
+                 zeros_row: bool = True):
+        self.idx = tuple(i.to(torch.int64).contiguous() for i in idx)
+        self.w = tuple(v.contiguous() for v in w)
+        rows = [int(i.shape[0]) for i in self.idx]
+        self.bucket_rows = sum(rows)
+        self.hub_rows = int(hub_rows)
+        self.zeros_row = bool(zeros_row)
+        self.rows = self.bucket_rows + self.hub_rows + int(self.zeros_row)
+        self.slots = sum(int(i.numel()) for i in self.idx)
+        self.w_dtype = self.w[0].dtype if self.w else torch.float32
+        desc, self.n_blocks = describe_buckets(
+            [int(i.shape[1]) for i in self.idx], rows,
+            self.bucket_rows + self.hub_rows if zeros_row else None)
+        table = np.zeros((desc.shape[0], 8), np.int64)
+        table[:, :4] = desc[:, 1:5]
+        table[:, 6] = desc[:, 5]
+        for e, b in enumerate(desc[:, 0]):
+            if b >= 0:
+                table[e, 4] = self.idx[b].data_ptr()
+                table[e, 5] = self.w[b].data_ptr()
+        self.n_entries = int(table.shape[0])
+        self.table = torch.as_tensor(table, device=device)
+
+
+# the launcher of csrc/ell_spmm.cu and the stream lookup, set at the first launch
+_ell_launcher = None
+_raw_stream = None
+
+
+def _launch_ell_spmm(*args, device: torch.device) -> None:
+    global _ell_launcher, _raw_stream
+    if _ell_launcher is None:
+        from gcn_recommendation_tpu_torch.kernels._build import load_library
+
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+        _ell_launcher = load_library("ell_spmm").ell_spmm_launch
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = _ell_launcher(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _ell_launcher(*args, _raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"ELL kernel launch failed: CUDA error {err}")
+
+
+def ell_spmm(x: torch.Tensor, buckets: BucketTable,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``buckets``' parts table over ``x`` [n, d] as ``[buckets.rows, d]``
+    in ``dtype`` (default ``x``'s): every bucket row and the zeros row by
+    one launch of ``csrc/ell_spmm.cu``, the hub rows left for the caller to
+    write.  A CUDA tensor only: it launches or raises."""
+    dtype = x.dtype if dtype is None else dtype
+    if x.device.type != "cuda":
+        raise ValueError(f"the ELL kernel runs on a CUDA device, not {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the ELL kernel takes a 2-D float32 or bfloat16 table, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the ELL kernel writes float32 or bfloat16, not {dtype}")
+    if buckets.w_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the ELL kernel takes float32 or bfloat16 weights, not "
+                         f"{buckets.w_dtype}")
+    if buckets.table.device != x.device:
+        raise ValueError(f"buckets on {buckets.table.device}, table on {x.device}")
+    n, d = x.shape
+    if n >= 2**31:
+        raise ValueError(f"the ELL kernel takes fewer than 2^31 source rows, got {n}")
+    # the kernel reads rows as groups of 4: other widths get zero columns in a
+    # scratch copy, sliced off the output
+    dk = -(-d // 4) * 4
+    x = x.contiguous()
+    if dk != d:
+        x = torch.nn.functional.pad(x, (0, dk - d))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty((buckets.rows, dk), dtype=dtype, device=x.device)
+    if buckets.n_entries and d:
+        _launch_ell_spmm(buckets.table.data_ptr(), buckets.n_entries, buckets.n_blocks,
+                         x.data_ptr(), int(x.dtype == torch.bfloat16),
+                         int(buckets.w_dtype == torch.bfloat16), n, dk, out.data_ptr(),
+                         int(dtype == torch.bfloat16), device=x.device)
+        ell_spmm.launches += 1
+        profiling.count(KERNEL_SLOTS, buckets.slots)
+    return out if dk == d else out[:, :d].contiguous()
+
+
+# kernel launches since the last reset (tests and the chip smoke test read it)
+ell_spmm.launches = 0
+
+
+def _parts_plain(x, buckets: BucketTable, dense=None, dtype=None) -> torch.Tensor:
+    """The plain version of ``_parts_matvec``: ``_bucket_reduce`` bucket by
+    bucket, the hub rows, the zeros row, one ``torch.cat``."""
+    dtype = x.dtype if dtype is None else dtype
+    parts = [_bucket_reduce(x, idx, w).to(dtype) for idx, w in zip(buckets.idx, buckets.w)]
+    if buckets.hub_rows:
+        parts.append(_hub_rows(dense, x).to(dtype))
+    if buckets.zeros_row:
+        parts.append(x.new_zeros((1, x.shape[1]), dtype=dtype))
+    return torch.cat(parts, dim=0) if parts else x.new_zeros((0, x.shape[1]), dtype=dtype)
+
+
+def _parts_matvec(x, buckets: BucketTable, dense=None, dtype=None) -> torch.Tensor:
+    """One propagation in parts order, ``[buckets.rows, d]`` in ``dtype``
+    (default ``x``'s): the bucket rows, ``dense @ x`` in the hub rows and
+    the zeros row, without the restore gather.  ``x`` is node-ordered (with
+    the node-space ids and hub matrix) or parts-ordered (with the composed
+    views of ``to_device_graph(fuse_layers=True)``).  A CUDA tensor takes
+    the kernel (it launches or raises), a CPU tensor the plain version."""
+    profiling.count(GATHERED_ROWS, buckets.slots)
+    if x.device.type == "cuda":
+        parts = ell_spmm(x, buckets, dtype)
+        if buckets.hub_rows:
+            _hub_rows(dense, x, out=parts.narrow(0, buckets.bucket_rows, buckets.hub_rows))
+        return parts
+    if x.device.type == "cpu":
+        return _parts_plain(x, buckets, dense, dtype)
+    raise ValueError(f"propagation: unsupported device {x.device}")
 
 
 def _restore(parts, gather_idx):
@@ -170,10 +337,10 @@ def _restore(parts, gather_idx):
     return parts.index_select(0, gather_idx)
 
 
-def _ell_matvec(emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
-    """``A_norm @ emb`` over ELL arrays (a ``DeviceGraph``'s, or one halo
+def _ell_matvec(emb, buckets: BucketTable, gather_idx, dense_mat):
+    """``A_norm @ emb`` over ELL buckets (a ``DeviceGraph``'s, or one halo
     shard's in ``parallel/halo.py``), in ``emb``'s dtype."""
-    return _restore(_parts_matvec(emb, bucket_nbr_idx, bucket_nbr_w, dense_mat), gather_idx)
+    return _restore(_parts_matvec(emb, buckets, dense_mat), gather_idx)
 
 
 @dataclasses.dataclass
@@ -194,6 +361,16 @@ class DeviceGraph(SymmetricGraph):
     dense_mat: torch.Tensor                    # [H, num_nodes] hub rows
     bucket_nbr_idx_perm: Tuple[torch.Tensor, ...] = ()  # gather_idx[nbr_idx], int64
     dense_mat_perm: Optional[torch.Tensor] = None       # [H, nrows], columns in parts order
+    # the parts tables' descriptors, node-space and merge-skip ids (built here)
+    buckets: BucketTable = dataclasses.field(init=False, repr=False, compare=False)
+    buckets_perm: Optional[BucketTable] = dataclasses.field(init=False, repr=False,
+                                                            compare=False)
+
+    def __post_init__(self):
+        dev, h = self.gather_idx.device, int(self.dense_mat.shape[0])
+        self.buckets = BucketTable(self.bucket_nbr_idx, self.bucket_nbr_w, dev, h)
+        self.buckets_perm = (BucketTable(self.bucket_nbr_idx_perm, self.bucket_nbr_w, dev, h)
+                             if self.fused else None)
 
     @property
     def fused(self) -> bool:
@@ -202,8 +379,7 @@ class DeviceGraph(SymmetricGraph):
                 and self.dense_mat_perm is not None)
 
     def product(self, x: torch.Tensor) -> torch.Tensor:
-        return _ell_matvec(x, self.bucket_nbr_idx, self.bucket_nbr_w, self.gather_idx,
-                           self.dense_mat)
+        return _ell_matvec(x, self.buckets, self.gather_idx, self.dense_mat)
 
     # Merge-skip.  Per-layer propagation ends every pass with an [N]-row
     # restore gather whose only consumer is the next layer's bucket
@@ -217,11 +393,10 @@ class DeviceGraph(SymmetricGraph):
     def _sum_product(self, n_layers: int, ego: torch.Tensor) -> torch.Tensor:
         """``sum_{k=1..K} A^k @ ego`` in f32: the parts tables in ``ego``'s
         dtype, their sum in f32, one restore gather at the end."""
-        p = _parts_matvec(ego, self.bucket_nbr_idx, self.bucket_nbr_w, self.dense_mat)
+        p = _parts_matvec(ego, self.buckets, self.dense_mat)
         s = p.float()
         for _ in range(n_layers - 1):
-            p = _parts_matvec(p, self.bucket_nbr_idx_perm, self.bucket_nbr_w,
-                              self.dense_mat_perm)
+            p = _parts_matvec(p, self.buckets_perm, self.dense_mat_perm)
             s = s + p.float()
         return _restore(s, self.gather_idx)
 
@@ -410,6 +585,14 @@ class ChunkedDeviceGraph(SymmetricGraph):
     chunk_gather_idx: Tuple[Tuple[torch.Tensor, ...], ...]  # [C][S] x [slice rows] int64
     dense_mat: torch.Tensor                                 # [H, num_nodes]
     dense_gather_idx: torch.Tensor                          # [num_nodes] -> H rows + zeros
+    # each cell's parts table [bucket rows | zeros row] (built here)
+    cell_buckets: Tuple[Tuple[BucketTable, ...], ...] = dataclasses.field(
+        init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.cell_buckets = tuple(
+            tuple(BucketTable(idx, w, gi.device) for idx, w, gi in zip(*cells))
+            for cells in zip(self.chunk_bucket_idx, self.chunk_bucket_w, self.chunk_gather_idx))
 
     @property
     def num_chunks(self) -> int:
@@ -427,24 +610,20 @@ class ChunkedDeviceGraph(SymmetricGraph):
         # the cross-chunk and hub partial sums accumulate in f32 even in bf16
         # storage (a bf16 accumulator would round each row C+1 times), with one
         # cast at the end.  One accumulator per destination slice: each cell's
-        # merge gather reads a parts table of at most slice_rows rows, and the
-        # slices concatenate in node order.  A cell's [nb, width, d]
-        # intermediates are freed as soon as its bucket is reduced.
-        zeros_row = emb.new_zeros((1, d), dtype=torch.float32)
+        # merge gather reads a parts table of at most slice_rows rows (f32,
+        # one kernel launch on a card), and the slices concatenate in node
+        # order.
         slice_acc = [None] * s
         for ci in range(c):
             sub = src.narrow(0, ci * chunk_rows, chunk_rows)
             for ti in range(s):
-                cell_idx = self.chunk_bucket_idx[ci][ti]
-                if profiling.collecting():
-                    profiling.count(GATHERED_ROWS, sum(i.numel() for i in cell_idx))
-                parts = [_bucket_reduce(sub, idx, w)
-                         for idx, w in zip(cell_idx, self.chunk_bucket_w[ci][ti])]
-                out_ct = _restore(torch.cat(parts + [zeros_row]), self.chunk_gather_idx[ci][ti])
+                parts = _parts_matvec(sub, self.cell_buckets[ci][ti], dtype=torch.float32)
+                out_ct = _restore(parts, self.chunk_gather_idx[ci][ti])
                 slice_acc[ti] = out_ct if slice_acc[ti] is None else slice_acc[ti] + out_ct
         acc = torch.cat(slice_acc) if s > 1 else slice_acc[0]
         if self.dense_mat.shape[0]:
-            hub = torch.cat([_hub_rows(self.dense_mat, emb), zeros_row])
+            hub = torch.cat([_hub_rows(self.dense_mat, emb),
+                             emb.new_zeros((1, d), dtype=torch.float32)])
             acc = acc + _restore(hub, self.dense_gather_idx)
         return acc.to(emb.dtype)
 

@@ -21,14 +21,14 @@ shards, so every rank runs the same shapes.  A rank keeps its own shard
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gcn_recommendation_tpu_torch.core.mesh import MODEL_AXIS
 from gcn_recommendation_tpu_torch.graph.build import Graph, bucket_by_degree
-from gcn_recommendation_tpu_torch.ops.spmm import _ell_matvec
+from gcn_recommendation_tpu_torch.ops.spmm import BucketTable, _ell_matvec
 from gcn_recommendation_tpu_torch.parallel.collectives import (
     all_gather_rows,
     gather_rows,
@@ -46,6 +46,8 @@ class ShardedEllArrays(NamedTuple):
     bucket_nbr_w: Tuple    # per width [m, rows, w] f32
     gather_idx: object     # [m, nodes_per_shard] int
     dense_mat: object      # [m, h_max, num_nodes_pad] f32
+    # one shard's parts table on its device (None on the host)
+    buckets: Optional[BucketTable] = None
 
 
 class ShardedEll:
@@ -75,11 +77,15 @@ class ShardedEll:
             return torch.as_tensor(np.ascontiguousarray(x[shard]), device=device).to(
                 compute_dtype)
 
+        bucket_idx = tuple(idx(x) for x in a.bucket_nbr_idx)
+        bucket_w = tuple(val(x) for x in a.bucket_nbr_w)
+        dense = val(a.dense_mat)
         return ShardedEllArrays(
-            bucket_nbr_idx=tuple(idx(x) for x in a.bucket_nbr_idx),
-            bucket_nbr_w=tuple(val(x) for x in a.bucket_nbr_w),
+            bucket_nbr_idx=bucket_idx,
+            bucket_nbr_w=bucket_w,
             gather_idx=idx(a.gather_idx),
-            dense_mat=val(a.dense_mat),
+            dense_mat=dense,
+            buckets=BucketTable(bucket_idx, bucket_w, dense.device, int(dense.shape[0])),
         )
 
 
@@ -164,9 +170,9 @@ def shard_ell(graph: Graph, n_shards: int, dense_threshold: int = 128) -> Sharde
     )
 
 
-def _local_propagate(full_emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat):
+def _local_propagate(full_emb, arrays: ShardedEllArrays):
     """One shard's output rows from the gathered whole node block."""
-    return _ell_matvec(full_emb, bucket_nbr_idx, bucket_nbr_w, gather_idx, dense_mat)
+    return _ell_matvec(full_emb, arrays.buckets, arrays.gather_idx, arrays.dense_mat)
 
 
 class _HaloLayer(torch.autograd.Function):
@@ -175,12 +181,12 @@ class _HaloLayer(torch.autograd.Function):
         ctx.arrays, ctx.group = arrays, group
         if full is None:
             full = all_gather_rows(e_local, group)  # the halo exchange
-        return _local_propagate(full, *arrays)
+        return _local_propagate(full, arrays)
 
     @staticmethod
     def backward(ctx, grad):
         # A_norm is symmetric: this shard's rows of A @ (all shards' grads)
-        return _local_propagate(all_gather_rows(grad, ctx.group), *ctx.arrays), None, None, None
+        return _local_propagate(all_gather_rows(grad, ctx.group), ctx.arrays), None, None, None
 
 
 def halo_layer(e_local, arrays: ShardedEllArrays, group, full=None):

@@ -43,10 +43,10 @@ import torch.distributed as dist
 from gcn_recommendation_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from gcn_recommendation_tpu_torch.ops.quant import quantized_scores
 from gcn_recommendation_tpu_torch.ops.spmm import (
+    BucketTable,
     DeviceGraph,
     SymmetricGraph,
-    _bucket_reduce,
-    _hub_rows,
+    _parts_matvec,
     layer_mean,
     to_device_graph,
 )
@@ -129,6 +129,21 @@ class ShardedGraph(SymmetricGraph):
     gather_idx: torch.Tensor                  # node -> row of [every rank's
                                               # sharded rows | whole rows | zeros]
     group: object                             # the model axis's process group
+    # the two parts tables: this rank's [sharded buckets | sharded hub rows],
+    # and [whole buckets | whole hub rows | zeros row] (built here)
+    mine: BucketTable = dataclasses.field(init=False, repr=False, compare=False)
+    whole: BucketTable = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        dev, h = self.gather_idx.device, int(self.dense_mat.shape[0])
+        pick = [(i, w) for i, w, s in zip(self.bucket_nbr_idx, self.bucket_nbr_w,
+                                          self.bucket_sharded) if s]
+        rest = [(i, w) for i, w, s in zip(self.bucket_nbr_idx, self.bucket_nbr_w,
+                                          self.bucket_sharded) if not s]
+        self.mine = BucketTable([i for i, _ in pick], [w for _, w in pick], dev,
+                                h if self.dense_sharded else 0, zeros_row=False)
+        self.whole = BucketTable([i for i, _ in rest], [w for _, w in rest], dev,
+                                 0 if self.dense_sharded else h)
 
     def product(self, x: torch.Tensor) -> torch.Tensor:
         """``A_norm @ x`` for a whole node block ``x`` that every rank of
@@ -136,16 +151,10 @@ class ShardedGraph(SymmetricGraph):
         all-gather of them, the whole buckets, and the node gather.  The
         cotangent is alike on every model rank too, so the backward is
         this product on it."""
-        d = x.shape[1]
-        mine, whole = [], []
-        for idx, w, s in zip(self.bucket_nbr_idx, self.bucket_nbr_w, self.bucket_sharded):
-            (mine if s else whole).append(_bucket_reduce(x, idx, w).to(x.dtype))
-        if self.dense_mat.shape[0]:
-            hub = _hub_rows(self.dense_mat, x).to(x.dtype)
-            (mine if self.dense_sharded else whole).append(hub)
-        local = torch.cat(mine) if mine else x.new_zeros((0, d))
+        local = _parts_matvec(x, self.mine, self.dense_mat)
         gathered = all_gather_rows(local, self.group)
-        return torch.cat([gathered, *whole, x.new_zeros((1, d))]).index_select(0, self.gather_idx)
+        tail = _parts_matvec(x, self.whole, self.dense_mat)
+        return torch.cat([gathered, tail]).index_select(0, self.gather_idx)
 
 
 def shard_graph(graph: DeviceGraph, mesh) -> ShardedGraph:

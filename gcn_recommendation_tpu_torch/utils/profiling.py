@@ -31,7 +31,9 @@ The port's spans and its counters, by module:
     train.backward, train.adam
     spmm.forward, spmm.backward, spmm.hub,   ops/spmm.py (and the tile
     spmm.to_device                           path of ops/block_spmm.py)
-    spmm.gathered_rows (counter)             ops/spmm.py
+    spmm.gathered_rows, spmm.kernel_slots    ops/spmm.py (the rows a propagation
+    (counters)                               gathers; the ELL slots the bucket
+                                             kernel reduced, 0 on the CPU)
     eval.validate, eval.metrics              train/trainer.py, train/evaluate.py
     topk.mask, topk.select, eval.metrics     ops/topk.py (topk.mask: the plain
                                              version only; on a card the

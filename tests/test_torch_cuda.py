@@ -17,11 +17,14 @@ from gcn_recommendation_tpu_torch.config import Config
 from gcn_recommendation_tpu_torch.data.synthetic import synthetic_bundle
 from gcn_recommendation_tpu_torch.graph.tiles import partition_tiles
 from gcn_recommendation_tpu_torch.models import get_model
-from gcn_recommendation_tpu_torch.ops import block_spmm, quant, topk
+from gcn_recommendation_tpu_torch.ops import block_spmm, quant, spmm, topk
 from gcn_recommendation_tpu_torch.ops.spmm import propagate, to_device_graph
 from gcn_recommendation_tpu_torch.serve import Retriever
 from gcn_recommendation_tpu_torch.tools import exp_block_tiles
 from gcn_recommendation_tpu_torch.train.trainer import Trainer
+from gcn_recommendation_tpu_torch.utils import profiling
+
+from ell_order import kernel_order, sum_order_bound
 
 pytestmark = pytest.mark.cuda
 
@@ -778,3 +781,185 @@ def test_validate_launches_the_hit_histogram_once_per_eval_batch_on_card(card, b
     want = (sum(hist[:k]) / n, sum(h / np.log2(p + 2) for p, h in enumerate(hist[:k])) / n)
     assert 0 < want[0] < 1
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# ------------------------------------------------- K1: the ELL bucket kernel
+
+# the books graph's widths (1-128) and the north star's widest (2048-16384,
+# split over a block's lane groups); a few rows each
+ELL_ROWS = {1: 37, 2: 19, 4: 23, 24: 17, 128: 9, 2048: 4, 16384: 3}
+
+
+def _ell_buckets(card, d, dtype, n=3000, seed=0):
+    """A source table and one bucket of each width in ``ELL_ROWS``, with
+    padding slots (id 0, weight 0) as the ELL layout pads a row."""
+    rng = np.random.default_rng(seed + d)
+    idx, w = [], []
+    for width, rows in ELL_ROWS.items():
+        i = rng.integers(0, n, (rows, width))
+        v = rng.random((rows, width), dtype=np.float32)
+        pad = rng.random((rows, width)) < 0.1
+        i[pad], v[pad] = 0, 0.0
+        idx.append(torch.from_numpy(i).to(card))
+        w.append(torch.from_numpy(v).to(card, dtype))
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(card, dtype)
+    return x, idx, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 64, 132, 256])
+def test_ell_kernel_matches_plain_on_card(card, d, dtype):
+    """K1 over one parts table of every width: bit-equal to its own
+    summation order (``tests/ell_order.py``); against the plain
+    ``_bucket_reduce``, bit-equal at widths up to 4 in float32 (the same
+    sum of width-1 gathers) and wider within what two float32 summation
+    orders may differ by (``sum_order_bound``); the hub rows left to the
+    caller, the zeros row written; one launch, its slots counted."""
+    x, idx, w = _ell_buckets(card, d, dtype)
+    table = spmm.BucketTable(idx, w, card, hub_rows=5)
+    before = spmm.ell_spmm.launches
+    with profiling.collect() as rec:
+        out = spmm.ell_spmm(x, table, torch.float32)
+    torch.cuda.synchronize()
+    assert spmm.ell_spmm.launches == before + 1
+    assert rec.counters[spmm.KERNEL_SLOTS] == table.slots == sum(i.numel() for i in idx)
+    assert out.shape == (table.bucket_rows + 5 + 1, d) and out.dtype == torch.float32
+    row = 0
+    for i, v in zip(idx, w):
+        got = out[row:row + i.shape[0]]
+        row += i.shape[0]
+        assert torch.equal(got, kernel_order(x, i, v)), f"width {i.shape[1]}"
+        plain = spmm._bucket_reduce(x, i, v)
+        if i.shape[1] <= spmm.COLSUM_MAX_WIDTH and dtype == torch.float32:
+            assert torch.equal(got, plain), f"width {i.shape[1]}"
+        else:
+            assert ((got - plain).abs() <= sum_order_bound(x, i, v)).all(), f"width {i.shape[1]}"
+    assert torch.equal(out[-1], torch.zeros(d, device=card))
+    # the output in bfloat16 is the float32 sum rounded once (the hub rows,
+    # left unwritten, aside)
+    half = spmm.ell_spmm(x, table, torch.bfloat16)
+    written = torch.cat([torch.arange(table.bucket_rows), torch.tensor([table.rows - 1])])
+    assert torch.equal(half[written], out[written].to(torch.bfloat16))
+
+
+def test_ell_kernel_split_rows_are_deterministic_on_card(card):
+    """Rows split over a block's lane groups (widths 2048 and 16,384) add
+    their slices in shared memory in a fixed order: two launches agree bit
+    for bit."""
+    x, idx, w = _ell_buckets(card, 256, torch.float32)
+    table = spmm.BucketTable(idx, w, card)
+    assert spmm.describe_buckets([i.shape[1] for i in idx], [i.shape[0] for i in idx])[0][
+        :2, 5].tolist() == [1, 1]  # the two widest entries are split, and issued first
+    first = spmm.ell_spmm(x, table)
+    for _ in range(3):
+        assert torch.equal(spmm.ell_spmm(x, table), first)
+
+
+def test_ell_kernel_refuses_what_it_cannot_take(card):
+    x, idx, w = _ell_buckets(card, 64, torch.float32)
+    cpu_table = spmm.BucketTable([i.cpu() for i in idx], [v.cpu() for v in w],
+                                 torch.device("cpu"))
+    with pytest.raises(ValueError, match="buckets on cpu"):
+        spmm.ell_spmm(x, cpu_table)
+    table = spmm.BucketTable(idx, w, card)
+    with pytest.raises(ValueError, match="float32 or bfloat16 table"):
+        spmm.ell_spmm(x.half(), table)
+    with pytest.raises(ValueError, match="writes float32 or bfloat16"):
+        spmm.ell_spmm(x, table, torch.float16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        spmm.ell_spmm(x.cpu(), table)
+    # an unaligned or odd-width table is copied, not refused
+    odd = torch.randn((3000 * 50 + 1,), device=card)[1:].view(3000, 50)
+    got = spmm.ell_spmm(odd, table)
+    row = 0
+    for i, v in zip(idx, w):
+        assert torch.equal(got[row:row + i.shape[0]], kernel_order(odd, i, v))
+        row += i.shape[0]
+
+
+def _graph_kinds(bundle, device):
+    g = bundle.graph
+    return {
+        "per_layer": to_device_graph(g, device=device, fuse_layers=False),
+        "fused": to_device_graph(g, device=device),
+        "chunked": spmm.to_device_chunked_graph(g, 2, device=device),
+    }
+
+
+@pytest.mark.parametrize("kind", ["per_layer", "fused", "chunked"])
+def test_ell_kernel_launches_once_per_parts_table_on_card(card, bundle, kind):
+    """Every parts table a propagation builds is one K1 launch: one a
+    per-layer product, K a merge-skip layer sum, one a chunked cell; the
+    kernel's slots are the graph's bucket slots."""
+    graph = _graph_kinds(bundle, card)[kind]
+    x = torch.randn((bundle.graph.num_nodes, 32), device=card)
+    before = spmm.ell_spmm.launches
+    with profiling.collect() as rec:
+        if kind == "fused":
+            graph.layer_sum(x, 3)
+        else:
+            propagate(x, graph)
+    launches = spmm.ell_spmm.launches - before
+    if kind == "per_layer":
+        assert launches == 1 and rec.counters[spmm.KERNEL_SLOTS] == graph.buckets.slots
+    elif kind == "fused":
+        assert launches == 3
+        assert rec.counters[spmm.KERNEL_SLOTS] == (graph.buckets.slots
+                                                   + 2 * graph.buckets_perm.slots)
+    else:
+        cells = [t for chunk in graph.cell_buckets for t in chunk]
+        assert launches == len(cells) == 4
+        assert rec.counters[spmm.KERNEL_SLOTS] == sum(t.slots for t in cells)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["per_layer", "fused", "chunked"])
+def test_propagation_on_card_matches_the_cpu(card, bundle, kind, dtype):
+    """``propagate`` forward and backward (and the merge-skip ``layer_sum``)
+    over K1 on the card against the same graph on the CPU (the plain
+    version): the same sums up to summation order, a few float32 ulps (one
+    bfloat16 rounding apart in bfloat16 storage)."""
+    g = bundle.graph
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.standard_normal((g.num_nodes, 64), dtype=np.float32)).to(dtype)
+    r = torch.from_numpy(rng.standard_normal((g.num_nodes, 64), dtype=np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        graph = _graph_kinds(bundle, dev)[kind]
+        if dtype == torch.bfloat16:
+            graph = spmm.to_device_graph(g, torch.bfloat16, dev, fuse_layers=kind == "fused") \
+                if kind != "chunked" else spmm.to_device_chunked_graph(g, 2, torch.bfloat16,
+                                                                      device=dev)
+        x = x0.to(dev).requires_grad_(True)
+        y = graph.layer_sum(x, 3) if kind == "fused" else propagate(x, graph)
+        (gx,) = torch.autograd.grad((y.float() * r.to(dev)).sum(), x)
+        outs[str(dev)] = (y.detach().float().cpu(), gx.float().cpu())
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        torch.testing.assert_close(b, a, **tol)
+
+
+def test_trainer_takes_the_kernel_for_every_parts_table_on_card(card, bundle):
+    """The default ``Trainer`` (merge-skip): a step is 2 x 3 parts tables,
+    6 launches, a validation forward 3; ``spmm.kernel_slots`` is the bucket
+    part of ``spmm.gathered_rows``."""
+    cfg = Config(embedding_dim=64, n_layers=3, batch_size=512)
+    m = get_model("LightGCN")(bundle.num_users, bundle.num_items, bundle.num_brands, cfg,
+                              device=card)
+    m.init(torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, m, bundle)
+    graph = tr.graph
+    assert graph.fused
+    rng = np.random.default_rng(0)
+    rows = torch.from_numpy(rng.integers(0, len(bundle.train), 512)).to(card)
+    neg = torch.from_numpy(rng.integers(0, bundle.num_items, 512)).to(card)
+    before = spmm.ell_spmm.launches
+    with profiling.collect() as rec:
+        tr.train_step(tr.train_users[rows], tr.train_items[rows], neg)
+    assert spmm.ell_spmm.launches - before == 6
+    per_pass = graph.buckets.slots + 2 * graph.buckets_perm.slots
+    assert rec.counters[spmm.KERNEL_SLOTS] == 2 * per_pass
+    assert rec.counters[spmm.GATHERED_ROWS] == 2 * (per_pass + graph.gather_idx.shape[0])
+    before = spmm.ell_spmm.launches
+    tr.validate()
+    assert spmm.ell_spmm.launches - before == 3
